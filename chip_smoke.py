@@ -1,0 +1,356 @@
+"""Chip smoke test of the PyTorch/CUDA port (retto_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, one line each as they finish (a cut run shows where it stopped):
+
+0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+1. build: the CUDA kernel library (nvcc) and the C++ postprocess (g++),
+   started together, with their seconds;
+2. kernel vs plain: ``ops.db_pack.binarize_dilate_pack_rows_batch`` on the
+   card against its plain PyTorch version on the same inputs, bit-exact
+   (``torch.equal``), then timed with CUDA events beside its memory bound;
+3. end to end: ``RettoSession(device="cuda").device_pipeline().run_many``
+   with the mobile checkpoints over the fixture pages
+   (``retto_tpu_torch/testdata/smoke_pages.npz``: gray pages, one tinted
+   page, one tinted and rotated page that takes the gather warp and the
+   cls flip, one run with ``transfer_format="rgb"``), held to the JAX
+   pipeline's texts and boxes stored in the fixture; the kernel's launch
+   count is read around the run; then warm 16-page runs are timed;
+4. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero before the last line.  Without a CUDA card, or
+without the package beside it, the script exits non-zero and prints no
+result.  It imports only the port, torch, numpy, scipy and the standard
+library.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+from scipy import ndimage
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from retto_tpu_torch import RettoSession, SessionConfig  # noqa: E402
+from retto_tpu_torch import kernels, native  # noqa: E402
+from retto_tpu_torch.ops import db_pack  # noqa: E402
+from retto_tpu_torch.ops.charset import CharacterDict  # noqa: E402
+from retto_tpu_torch.pipeline.device_pipeline import _is_aligned  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+MAIN_SHAPE = (4, 512, 384)  # det chunk 4 x stride-2 logits of a 1024x768 bucket
+LOGIT_THRESH = math.log(0.3 / 0.7)
+# a line agrees with the JAX pipeline when its text is equal and its box
+# lies within BOX_TOL_PX; at least TEXT_MATCH_MIN of the lines must agree.
+# No box may lie beyond BOX_MAX_PX: one stride-2 mask pixel is ~2 page px,
+# and a bf16 mask flip at a line's end moves a corner by up to two of them
+# through the min-area rect and the unclip
+TEXT_MATCH_MIN = 0.95
+BOX_TOL_PX = 2.0
+BOX_MAX_PX = 4.0
+
+
+def say(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card() -> tuple[str, str]:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()[0]
+    say("card", torch=torch.__version__, cuda=torch.version.cuda,
+        name=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count())
+    return smi, torch.cuda.get_device_name(0)
+
+
+def build() -> None:
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        k_fut = pool.submit(timed, kernels.load)
+        n_fut = pool.submit(timed, native._load)
+        _, k_s = k_fut.result()
+        lib, n_s = n_fut.result()
+    if lib is None:
+        fail("native postprocess (g++) did not build")
+    say("build", nvcc_kernels_s=f"{k_s:.2f}", gxx_native_s=f"{n_s:.2f}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_phase() -> dict:
+    """Kernel vs plain on the card, bit-exact, then timed at the main
+    path's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    cases = []
+    main = (torch.randn(MAIN_SHAPE, generator=gen, device=dev) * 3).to(torch.bfloat16)
+    cases.append(("main_bf16_logit", main, LOGIT_THRESH, True))
+    small = torch.rand((1, 64, 128), generator=gen, device=dev)
+    cases.append(("b1_f32_dilate", small, 0.3, True))
+    cases.append(("b1_f32_no_dilate", small, 0.3, False))
+    halo = torch.zeros((2, 128, 256), device=dev)
+    halo[0, 63, 100] = 0.9  # last row of a 64-row tile
+    halo[1, 7, 0] = 0.9  # last row of a packed group, column 0
+    halo[1, 8, 255] = 0.9
+    cases.append(("tile_halo", halo, 0.3, True))
+    t32 = torch.tensor(0.3, dtype=torch.float32)
+    at = torch.where(torch.rand((1, 128, 128), generator=gen, device=dev) > 0.5,
+                     t32.to(dev), torch.zeros((), device=dev))
+    cases.append(("at_threshold_f32", at, 0.3, True))
+    tb = torch.tensor(LOGIT_THRESH).to(torch.bfloat16)
+    atb = torch.where(torch.rand((2, 64, 128), generator=gen, device=dev) > 0.5,
+                      tb.to(dev), torch.full((), -5.0, dtype=torch.bfloat16, device=dev))
+    cases.append(("at_threshold_bf16", atb, LOGIT_THRESH, True))
+    max_err = 0
+    for name, x, th, dil in cases:
+        got = db_pack.binarize_dilate_pack_rows_batch(x, th, dil)
+        torch.cuda.synchronize()
+        ref = db_pack.binarize_dilate_pack_rows_batch_plain(x, th, dil)
+        exact = torch.equal(got, ref)
+        err = int((got.int() - ref.int()).abs().max())
+        max_err = max(max_err, err)
+        say("kernel", case=name, shape=tuple(x.shape), dtype=str(x.dtype).split(".")[-1],
+            exact=exact, ones=int(got.ne(0).sum()))
+        if not exact:
+            fail(f"db_pack kernel differs from its plain version on {name}")
+    # the one-map entry point (TPU _kernel) is the B = 1 case
+    one = db_pack.binarize_dilate_pack_rows(main[0], LOGIT_THRESH, True)
+    if not torch.equal(one, db_pack.binarize_dilate_pack_rows_batch_plain(
+            main[:1], LOGIT_THRESH, True)[0]):
+        fail("binarize_dilate_pack_rows (B = 1) differs from the plain version")
+    say("kernel", case="b1_entry_point", exact=True)
+
+    iters = 500
+    ms = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch(main, LOGIT_THRESH, True),
+                 iters)
+    plain_ms = cuda_ms(
+        lambda: db_pack.binarize_dilate_pack_rows_batch_plain(main, LOGIT_THRESH, True), iters
+    )
+    b, h, w = MAIN_SHAPE
+    nbytes = b * h * w * main.element_size() + b * (h // 8) * w
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say("kernel", timed_shape=MAIN_SHAPE, iters=iters, ms=f"{ms:.6f}",
+        plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes)
+    # the one-map entry point (TPU _kernel) on one page's logits: not on
+    # the main path, timed for the kernel table
+    page = main[0]
+    ms1 = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True), iters)
+    plain1 = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch_plain(
+        page[None], LOGIT_THRESH, True), iters)
+    bytes1 = nbytes // b
+    say("kernel", entry="binarize_dilate_pack_rows", timed_shape=tuple(page.shape),
+        ms=f"{ms1:.6f}", plain_ms=f"{plain1:.6f}",
+        bound_ms=f"{bytes1 / HBM_BYTES_PER_S * 1e3:.6f}", bytes=bytes1)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": max_err}
+
+
+def _lines(results, page_ids):
+    out = []
+    for p, r in zip(page_ids, results):
+        if not hasattr(r, "det_result"):
+            fail(f"page {p} failed: {r!r}")
+        for b, t in zip(r.det_result, r.rec_result):
+            box = np.asarray(b.box.pts, np.float32)
+            if box.shape != (4, 2) or not np.isfinite(box).all():
+                fail(f"page {p}: malformed box {box!r}")
+            out.append((p, box, t.text))
+    return out
+
+
+def compare(label: str, got: list, ref_page, ref_boxes, ref_texts):
+    """Match each reference line to the port's nearest box on its page.
+    Returns (agreeing lines, lines, box distances); prints every line that
+    does not agree (text differs, box beyond BOX_TOL_PX, or no partner)."""
+    agree, dists = 0, []
+    used = set()
+    for p, rb, rt in zip(ref_page, ref_boxes, ref_texts):
+        cands = [(float(np.abs(b - rb).max()), i) for i, (gp, b, _) in enumerate(got)
+                 if gp == p and i not in used]
+        if not cands:
+            print(f"  {label} page {p}: JAX line {str(rt)!r} has no port line", flush=True)
+            continue
+        d, i = min(cands)
+        used.add(i)
+        dists.append(d)
+        text = got[i][2]
+        if text == rt and d <= BOX_TOL_PX:
+            agree += 1
+        else:
+            print(f"  {label} page {p}: port {text!r} vs JAX {str(rt)!r}, "
+                  f"box {d:.2f} px", flush=True)
+    extra = len(got) - len(used)
+    if extra:
+        print(f"  {label}: {extra} port lines without a JAX line", flush=True)
+    return agree, len(ref_texts) + extra, dists
+
+
+def e2e_phase(fx) -> int:
+    """Drive the main path, hold it to the fixture, time warm runs; returns
+    the db_pack launches of the main-path call."""
+    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
+    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
+    t = time.perf_counter()
+    cfg = SessionConfig()
+    cfg.engine.transfer_format = "yuv420"
+    session = RettoSession(cfg, preset="mobile", charset=chars, weights=weights,
+                           device="cuda")
+    dp = session.device_pipeline()
+    say("e2e", session_build_s=f"{time.perf_counter() - t:.2f}")
+    pages = [np.repeat(p[..., None], 3, axis=2) for p in fx["pages"]]
+    tint = fx["tint"].astype(np.float32)
+
+    def tinted_page(i):
+        return np.rint(fx["pages"][i][..., None].astype(np.float32) * tint).astype(np.uint8)
+
+    tinted = tinted_page(0)
+    rotated = ndimage.rotate(tinted_page(2), float(fx["rotate_deg"]), reshape=False,
+                             order=1, cval=255)
+
+    # the main path: counts to 0 just before, read just after
+    db_pack.binarize_dilate_pack_rows_batch.launches = 0
+    t = time.perf_counter()
+    res = dp.run_many(pages + [tinted, rotated])
+    torch.cuda.synchronize()
+    launches = db_pack.binarize_dilate_pack_rows_batch.launches
+    say("e2e", main_path_run_many_s=f"{time.perf_counter() - t:.3f}", images=len(res),
+        db_pack_launches=launches, formats="gray+yuv420")
+    if launches <= 0:
+        fail("the main path never launched the db_pack kernel")
+    gray = _lines(res[:8], range(len(pages)))
+    eq_g, n_g, d_g = compare("gray", gray, fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
+    eq_t, n_t, d_t = compare("tinted", _lines(res[8:9], [0]), fx["jax_tinted_page"],
+                             fx["jax_tinted_boxes"], fx["jax_tinted_texts"])
+    eq_o, n_o, d_o = compare("rotated", _lines(res[9:], [2]), fx["jax_rotated_page"],
+                             fx["jax_rotated_boxes"], fx["jax_rotated_texts"])
+    rot = res[9]
+    flips = sum(c.label == 180 for c in rot.cls_result)
+    gathered = sum(not _is_aligned(b.box.pts) for b in rot.det_result)
+    say("e2e", rotated_lines=len(rot.det_result), cls_flips=flips,
+        gather_warp_lines=gathered)
+    if not flips or not gathered:
+        fail("the rotated page took no cls flip or no gather warp")
+
+    cfg_rgb = SessionConfig()
+    cfg_rgb.engine.transfer_format = "rgb"
+    dp_rgb = RettoSession(cfg_rgb, preset="mobile", charset=chars, weights=weights,
+                          device="cuda").device_pipeline()
+    before = db_pack.binarize_dilate_pack_rows_batch.launches
+    res_rgb = dp_rgb.run_many([pages[1]])
+    rgb_launches = db_pack.binarize_dilate_pack_rows_batch.launches - before
+    eq_r, n_r, d_r = compare("rgb", _lines(res_rgb, [1]), fx["jax_rgb_page"],
+                             fx["jax_rgb_boxes"], fx["jax_rgb_texts"])
+    agree, total = eq_g + eq_t + eq_o + eq_r, n_g + n_t + n_o + n_r
+    dists = d_g + d_t + d_o + d_r
+    frac = agree / max(total, 1)
+    texts_equal = sum(
+        t == str(rt) for t, rt in zip([x[2] for x in gray], fx["jax_texts"])
+    )
+    say("e2e", lines_agreeing_with_jax=f"{agree}/{total}", fraction=f"{frac:.4f}",
+        gray=f"{eq_g}/{n_g}", tinted=f"{eq_t}/{n_t}", rotated=f"{eq_o}/{n_o}",
+        rgb=f"{eq_r}/{n_r}",
+        gray_texts_equal_in_order=f"{texts_equal}/{len(fx['jax_texts'])}",
+        box_max_px=f"{max(dists, default=0.0):.2f}",
+        boxes_beyond_tol=sum(d > BOX_TOL_PX for d in dists),
+        rgb_db_pack_launches=rgb_launches)
+    if total == 0 or frac < TEXT_MATCH_MIN:
+        fail(f"only {agree}/{total} lines agree with the JAX pipeline")
+    if max(dists, default=0.0) > BOX_MAX_PX:
+        fail(f"a box lies {max(dists):.2f} px from the JAX pipeline's (> {BOX_MAX_PX})")
+    gt = set(str(t) for t in fx["gt_texts"])
+    say("e2e", port_lines_equal_to_ground_truth=f"{sum(t in gt for _, _, t in gray)}/"
+        f"{len(fx['gt_texts'])}")
+
+    # warm 16-page runs (bench.py config 3's batch)
+    batch = pages + pages
+    dp.run_many(batch)
+    torch.cuda.synchronize()
+    times = []
+    launches16 = 0
+    for _ in range(5):
+        db_pack.binarize_dilate_pack_rows_batch.launches = 0
+        t = time.perf_counter()
+        dp.run_many(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches16 = db_pack.binarize_dilate_pack_rows_batch.launches
+    med = sorted(times)[len(times) // 2]
+    stats = {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in dp.last_stats.items()}
+    say("e2e", pages=len(batch), images_per_s_median=f"{len(batch) / med:.3f}",
+        images_per_s_best=f"{len(batch) / min(times):.3f}",
+        run_s=[round(x, 4) for x in times], db_pack_launches_per_run=launches16)
+    print("[e2e] last_stats " + json.dumps(stats), flush=True)
+    return launches
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", flush=True)
+        sys.exit(2)
+    t0 = time.perf_counter()
+    smi, kind = card()
+    build()
+    k = kernel_phase()
+    fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
+    launches = e2e_phase(fx)
+    kernel_line = {"kernels": [{
+        "name": "db_pack_rows",
+        "route": "cuda",
+        "source": "retto_tpu_torch/csrc/db_pack.cu",
+        "replaces": "retto_tpu/ops/pallas/db_pack.py:153",
+        "also_replaces": "retto_tpu/ops/pallas/db_pack.py:127",
+        "launches": launches,
+        "exact": True,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}
+    say("done", total_s=f"{time.perf_counter() - t0:.1f}")
+    print(json.dumps(kernel_line), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""SVTR-LCNet text recognizer with CTC output (PyTorch).
+
+Port of ``retto_tpu/models/svtr.py``.  Engine contract (worker.rs:72):
+NCHW f32 [N, 3, H, W] -> per-timestep class probabilities f32 [N, T, C],
+T = W / 8.
+
+Parity traps pinned by tests/test_torch_models.py: SAME padding of the
+(2, 1)-strided stage pads rows (0, 1) and columns (1, 1) (svtr.py:70);
+GELU is the tanh approximation (svtr.py:102); LayerNorm eps is 1e-6
+(svtr.py:95, :100, :129).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import ACTIVATIONS, ConvBNAct, Dense, LayerNorm, SEModule
+
+__all__ = ["DSConv", "LCNetBackbone", "MultiHeadDotProductAttention", "SVTRBlock",
+           "RecModel"]
+
+
+class DSConv(nn.Module):
+    """Depthwise-separable conv block (svtr.py:27-47)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride=1, use_se: bool = False):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(in_ch, in_ch, 3, stride, groups=in_ch,
+                                     act="hardswish")
+        self.use_se = use_se
+        if use_se:
+            self.SEModule_0 = SEModule(in_ch)
+        self.ConvBNAct_1 = ConvBNAct(in_ch, out_ch, 1, 1, act="hardswish")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvBNAct_0(x)
+        if self.use_se:
+            x = self.SEModule_0(x)
+        return self.ConvBNAct_1(x)
+
+
+class LCNetBackbone(nn.Module):
+    """Stem (2,2), stages (2,2), (2,2), (2,1), (1,1), then the mean over the
+    remaining height -> [N, W/8, C] (svtr.py:50-84)."""
+
+    def __init__(self, dims: Sequence[int] = (64, 128, 256, 512),
+                 depths: Sequence[int] = (2, 2, 2, 2)):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(3, dims[0] // 2, 3, 2, act="hardswish")
+        strides = [(2, 2), (2, 2), (2, 1), (1, 1)]
+        self.blocks: list[str] = []
+        c = dims[0] // 2
+        for dim, depth, stride in zip(dims, depths, strides):
+            for i in range(depth):
+                name = f"DSConv_{len(self.blocks)}"
+                setattr(self, name, DSConv(c, dim, stride if i == 0 else 1,
+                                           use_se=(i == depth - 1)))
+                self.blocks.append(name)
+                c = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvBNAct_0(x)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        return x.float().mean(dim=2).to(x.dtype).transpose(1, 2)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """Flax ``nn.MultiHeadDotProductAttention`` self-attention: the q/k/v
+    ``DenseGeneral`` kernels [D, H, Dh] stacked into ``in_proj_weight``
+    [3D, D], the output kernel [H, Dh, D] as ``out_proj`` [D, D].  Queries
+    are scaled by 1/sqrt(Dh) before the product and the softmax runs over
+    keys, as in flax's ``dot_product_attention``."""
+
+    compute_cast = True  # models.common.cast_compute casts in_proj too
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = Dense(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, t, d = x.shape
+        h = self.num_heads
+        dh = d // h
+        qkv = F.linear(x.to(self.in_proj_weight.dtype), self.in_proj_weight,
+                       self.in_proj_bias)
+        q, k, v = (z.reshape(n, t, h, dh) for z in qkv.split(d, dim=-1))
+        q = q / torch.tensor(math.sqrt(dh), dtype=q.dtype, device=q.device)
+        w = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        w = torch.softmax(w.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, t, d)
+        return self.out_proj(out)
+
+
+class SVTRBlock(nn.Module):
+    """Pre-norm global mixing block: LN -> MHSA -> LN -> MLP
+    (svtr.py:87-106)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 2.0):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(dim)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads)
+        self.LayerNorm_1 = LayerNorm(dim)
+        hidden = int(dim * mlp_ratio)
+        self.Dense_0 = Dense(dim, hidden)
+        self.Dense_1 = Dense(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
+        y = ACTIVATIONS["gelu"](self.Dense_0(self.LayerNorm_1(x)))
+        return x + self.Dense_1(y)
+
+
+class RecModel(nn.Module):
+    """LCNet backbone -> SVTR mixer -> CTC head (svtr.py:109-134)."""
+
+    def __init__(self, num_classes: int = 6625,
+                 dims: Sequence[int] = (64, 128, 256, 512),
+                 depths: Sequence[int] = (2, 2, 2, 2), mixer_dim: int = 120,
+                 mixer_depth: int = 2, num_heads: int = 8,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.LCNetBackbone_0 = LCNetBackbone(dims, depths)
+        self.Dense_0 = Dense(dims[-1], mixer_dim)
+        self.mixer = [f"SVTRBlock_{i}" for i in range(mixer_depth)]
+        for name in self.mixer:
+            setattr(self, name, SVTRBlock(mixer_dim, num_heads))
+        self.LayerNorm_0 = LayerNorm(mixer_dim)
+        self.Dense_1 = Dense(mixer_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        seq = self.Dense_0(self.LCNetBackbone_0(x))
+        for name in self.mixer:
+            seq = getattr(self, name)(seq)
+        return torch.softmax(self.Dense_1(self.LayerNorm_0(seq)).float(), dim=-1)

@@ -1,0 +1,234 @@
+"""retto_tpu_torch DevicePipeline (device="cpu") against the JAX
+DevicePipeline on the same inputs, at a tiny float32 configuration.
+
+Both load the same self-described checkpoints: small tpu_v2 det, dense cls
+and the tiny SVTR rec, random weights from Flax's init (seeded), written to
+a temporary directory.  Permissive det thresholds make the random det fire,
+so crops go through cls and rec.  Covered: transfer formats gray, yuv420
+(via ``transfer_format="yuv420"``) and rgb, with ``use_cls`` on and off.
+Tolerance: texts, cls labels and box counts equal; boxes within 1 px."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from retto_tpu.config import BucketConfig as JBucket, SessionConfig as JConfig
+from retto_tpu.models import MODEL_PRESETS, build_cls, build_det, build_rec
+from retto_tpu.ops.charset import CharacterDict as JChars, ascii_charset
+from retto_tpu.pipeline.session import RettoSession as JSession
+from retto_tpu.weights import save_params
+from retto_tpu_torch import BucketConfig, RettoSession, SessionConfig
+from retto_tpu_torch.ops.charset import CharacterDict
+
+ARCH = {
+    "det": dict(backbone="tpu_v2", widths=[32, 64, 96], depths=[1, 1, 1], inner_ch=32,
+                head_ch=32),
+    "cls": dict(arch="dense", width=16),
+    "rec": {k: list(v) if isinstance(v, tuple) else v
+            for k, v in MODEL_PRESETS["tiny"]["rec"].items()},
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_weights(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tiny_ckpt")
+    n_cls = len(ascii_charset()) + 2
+    tup = {k: {kk: tuple(vv) if isinstance(vv, list) else vv for kk, vv in v.items()}
+           for k, v in ARCH.items()}
+    models = {
+        "det": build_det("bare", compute_dtype="float32", **tup["det"]),
+        "cls": build_cls("bare", compute_dtype="float32", **tup["cls"]),
+        "rec": build_rec("bare", num_classes=n_cls, compute_dtype="float32", **tup["rec"]),
+    }
+    shapes = {"det": (1, 3, 64, 64), "cls": (1, 3, 48, 192), "rec": (1, 3, 48, 320)}
+    paths = {}
+    for i, (k, m) in enumerate(models.items()):
+        x = jnp.zeros(shapes[k])
+        # det: init in train mode so the threshold head (a trained
+        # checkpoint carries it) exists too
+        kw = {"train": True} if k == "det" else {}
+        variables = jax.jit(lambda r, v, m=m, kw=kw: m.init(r, v, **kw))(
+            jax.random.PRNGKey(i), x)
+        paths[k] = str(d / f"{k}.npz")
+        save_params(paths[k], variables, meta={"preset": "bare", "overrides": ARCH[k]})
+    return paths
+
+
+def _configs(cls_cfg, bucket_cls, transfer):
+    cfg = cls_cfg()
+    cfg.det.limit_side_len = 128
+    cfg.det.thresh = 0.45
+    cfg.det.box_thresh = 0.1
+    cfg.det.max_candidates = 8
+    cfg.buckets = bucket_cls(det_pad_to=64, det_max_side=256, rec_width_buckets=(320,),
+                             cls_batch_buckets=(4,), rec_batch_buckets=(4,))
+    cfg.engine.compute_dtype = "float32"
+    cfg.engine.transfer_format = transfer
+    return cfg
+
+
+def _images():
+    rng = np.random.default_rng(0)
+    color = [rng.integers(0, 255, (160, 200, 3), dtype=np.uint8) for _ in range(2)]
+    gray = rng.integers(0, 255, (150, 210), dtype=np.uint8)
+    return color + [np.repeat(gray[..., None], 3, axis=2)]
+
+
+@pytest.fixture(scope="module")
+def pipelines(tiny_weights):
+    """(JAX, port) pipelines per transfer format, built once; ``use_cls`` is
+    read per call, so one pair serves both settings."""
+    built = {}
+
+    def get(transfer):
+        if transfer not in built:
+            chars = ascii_charset()
+            jcfg = _configs(JConfig, JBucket, transfer)
+            tcfg = _configs(SessionConfig, BucketConfig, transfer)
+            built[transfer] = (
+                JSession(jcfg, charset=JChars(chars), weights=tiny_weights)
+                .device_pipeline(),
+                RettoSession(tcfg, charset=CharacterDict(chars), weights=tiny_weights,
+                             device="cpu").device_pipeline(),
+            )
+        return built[transfer]
+
+    yield get
+    for jdp, _ in built.values():
+        jdp.close()
+
+
+@pytest.mark.parametrize("use_cls", [True, False])
+@pytest.mark.parametrize("transfer", ["yuv420", "rgb"])
+def test_tiny_pipeline_matches_jax(pipelines, transfer, use_cls):
+    jdp, tdp = pipelines(transfer)
+    jdp.cfg.use_cls = tdp.cfg.use_cls = use_cls
+    imgs = _images()
+    ref = jdp.run_many(imgs)
+    got = tdp.run_many(imgs)
+    if transfer == "yuv420":
+        assert sorted({k[-1] for k in _formats(tdp, imgs)}) == ["gray", "yuv420"]
+    crops = 0
+    for r, g in zip(ref, got):
+        assert len(g.det_result) == len(r.det_result)
+        crops += len(r.det_result)
+        for rb, gb in zip(r.det_result, g.det_result):
+            assert np.abs(np.asarray(gb.box.pts) - np.asarray(rb.box.pts)).max() <= 1.0
+        assert [t.text for t in g.rec_result] == [t.text for t in r.rec_result]
+        assert [c.label for c in g.cls_result] == [c.label for c in r.cls_result]
+        assert len(g.cls_result) == (len(g.det_result) if use_cls else 0)
+    assert crops > 0  # the random det fired: cls and rec were exercised
+    assert any(t.text for r in got for t in r.rec_result)
+
+
+def _formats(dp, imgs):
+    return [(dp._decode_one(im)[0].fmt,) for im in imgs]
+
+
+def test_entry_points_refuse_cuda_without_a_card(tiny_weights):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = _configs(SessionConfig, BucketConfig, "yuv420")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RettoSession(cfg, weights=tiny_weights)
+
+
+@pytest.mark.parametrize("disabled", [
+    ("det_chunk_native",),
+    ("det_chunk_native", "pack_auto_native", "is_gray_native", "pack_gray_native",
+     "pack_yuv420_native", "det_candidates_native", "det_finalize_native"),
+], ids=["det_tail", "all_native"])
+def test_fallbacks_without_native_match_jax(pipelines, monkeypatch, disabled):
+    """Without the C++ library, the det tail runs on numpy contours and the
+    gray/YUV pack on numpy/PIL, in both packages
+    (device_pipeline.py:755-773, :1080-1101); the port's fallbacks must read
+    the same boxes and texts as the JAX ones."""
+    import retto_tpu.native as j_native
+    import retto_tpu_torch.native as t_native
+
+    for name in disabled:
+        monkeypatch.setattr(j_native, name, lambda *a, **k: None)
+        monkeypatch.setattr(t_native, name, lambda *a, **k: None)
+    jdp, tdp = pipelines("yuv420")
+    jdp.cfg.use_cls = tdp.cfg.use_cls = True
+    imgs = _images()
+    ref, got = jdp.run_many(imgs), tdp.run_many(imgs)
+    assert sum(len(r.det_result) for r in ref) > 0
+    for r, g in zip(ref, got):
+        assert len(g.det_result) == len(r.det_result)
+        for rb, gb in zip(r.det_result, g.det_result):
+            assert np.abs(np.asarray(gb.box.pts) - np.asarray(rb.box.pts)).max() <= 1.0
+        assert [t.text for t in g.rec_result] == [t.text for t in r.rec_result]
+
+
+def test_corrupt_input_is_isolated(pipelines):
+    from retto_tpu_torch.errors import RettoError
+
+    _, tdp = pipelines("yuv420")
+    good = _images()[0]
+    res = tdp.run_many([good, b"not an image", good])
+    assert isinstance(res[1], RettoError)
+    assert not isinstance(res[0], RettoError) and not isinstance(res[2], RettoError)
+    assert [t.text for t in res[0].rec_result] == [t.text for t in res[2].rec_result]
+    with pytest.raises(RettoError):
+        tdp.run(b"\x00\x01garbage")
+
+
+def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
+    """``_dispatch_clsrec`` + ``_fetch_texts`` on hand-made crop tasks: a
+    line wider than the largest rec width bucket (320 here) splits into
+    overlapping segments whose CTC streams are merged on the host
+    (device_pipeline.py:1199-1225, :1358-1365); an aligned quad takes the
+    separable warp, a tilted one the gather warp."""
+    import jax.numpy as jnp
+
+    from retto_tpu.pipeline import device_pipeline as jmod
+    from retto_tpu_torch.pipeline import device_pipeline as tmod
+
+    jdp, tdp = pipelines("yuv420")
+    jdp.cfg.use_cls = tdp.cfg.use_cls = True
+    rng = np.random.default_rng(7)
+    imgs = rng.integers(0, 255, (2, 64, 640, 3), dtype=np.uint8)
+    imgs[:, 20:40] //= 4  # a dark band the crops cross
+    valid = np.asarray([[60, 600], [64, 640]], np.int32)
+    quads = [
+        (0, [[10, 10], [590, 10], [590, 40], [10, 40]]),  # wide, aligned: k = 4
+        (1, [[20, 5], [120, 5], [120, 45], [20, 45]]),  # one segment
+        (1, [[12, 14], [600, 24], [599, 54], [11, 44]]),  # wide, tilted: gather
+    ]
+
+    def tasks(mod, **kw):
+        out = []
+        for j, (i, q) in enumerate(quads):
+            im = mod._Img(64, 640, 64, 640, 64, 640)
+            im.row = i
+            q = np.asarray(q, np.float32)
+            w = int(max(np.linalg.norm(q[1] - q[0]), np.linalg.norm(q[2] - q[3])))
+            h = int(max(np.linalg.norm(q[3] - q[0]), np.linalg.norm(q[2] - q[1])))
+            out.append((mod._CropTask(i, j, q, h, w, im=im, **kw), 0))
+        return out
+
+    def stats():
+        return {"dispatches": 0, "bytes_down": 0, "t_clsrec_fetch": 0.0}
+
+    jt, tt = tasks(jmod, sid=0), tasks(tmod)
+    jh = jdp._dispatch_clsrec(jnp.asarray(imgs), jnp.asarray(valid), jt, stats())
+    jtexts, ttexts = {}, {}
+    jdp._fetch_texts(jh, stats(), jtexts)
+    with torch.inference_mode():  # run_many's mode around the internals
+        th = tdp._dispatch_clsrec(torch.from_numpy(imgs), torch.from_numpy(valid), tt,
+                                  stats())
+        assert max(e[2] for items, _ in th for e in items) == 4  # the wide line split
+        tdp._fetch_texts(th, stats(), ttexts)
+    for j in range(len(quads)):
+        r, g = jtexts[(0, jt[j][0].img_i, j)], ttexts[(tt[j][0].img_i, j)]
+        assert g.text == r.text and abs(g.score - r.score) <= 1e-5
+        tc, jc = tt[j][0].cls_label, jt[j][0].cls_label
+        assert tc.label == jc.label and abs(tc.score - jc.score) <= 1e-5
+    assert any(ttexts[k].text for k in ttexts)
