@@ -9,16 +9,20 @@ Phases, one line each as they finish (a cut run shows where it stopped):
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build: the CUDA kernel library (nvcc) and the C++ postprocess (g++),
    started together, with their seconds;
-2. kernel vs plain: ``ops.db_pack.binarize_dilate_pack_rows_batch`` on the
-   card against its plain PyTorch version on the same inputs, bit-exact
-   (``torch.equal``), then timed with CUDA events beside its memory bound;
+2. kernel vs plain: ``ops.db_pack.db_epilogue`` (the det epilogue: mask and
+   pooled prob map in one launch) on the card against its plain PyTorch
+   version ``db_epilogue_plain`` on the same inputs, both outputs bit-exact
+   (``torch.equal``), and the mask-only entry points likewise; then timed at
+   the main path's shape: device time per launch from a CUDA graph of 100
+   launches, host time per wrapper call, beside its memory bound;
 3. end to end: ``RettoSession(device="cuda").device_pipeline().run_many``
    with the mobile checkpoints over the fixture pages
    (``retto_tpu_torch/testdata/smoke_pages.npz``: gray pages, one tinted
    page, one tinted and rotated page that takes the gather warp and the
    cls flip, one run with ``transfer_format="rgb"``), held to the JAX
    pipeline's texts and boxes stored in the fixture; the kernel's launch
-   count is read around the run; then warm 16-page runs are timed;
+   count is read around the run (and the mask-only mode must not run);
+   then warm 16-page runs are timed;
 4. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -97,9 +101,14 @@ def build() -> None:
     if lib is None:
         fail("native postprocess (g++) did not build")
     say("build", nvcc_kernels_s=f"{k_s:.2f}", gxx_native_s=f"{n_s:.2f}")
+    for line in kernels.build_log().splitlines():  # ptxas -v: registers, spills
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[build] {line.strip()}", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
+    """Mean ms per call with CUDA events around ``iters`` eager calls: the
+    larger of the host's issue time and the device time."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -113,14 +122,75 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase() -> dict:
-    """Kernel vs plain on the card, bit-exact, then timed at the main
-    path's shape."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
-    cases = []
+def device_ms(fn, per_graph: int = 100, replays: int = 20) -> float:
+    """Device time per call: ``per_graph`` calls captured in one CUDA graph
+    (the ctypes launchers launch on the capturing stream), the graph
+    replayed between CUDA events, so no host work is in the number.  The
+    input stays in the 50 MB L2 between calls, as the det head's output is
+    when the pipeline's epilogue reads it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+def host_ms(fn, iters: int = 2000) -> float:
+    """Host time per wrapper call: the Python loop's clock, with the device
+    far from full (each call's kernel takes less time than its issue)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _epilogue_cases(gen, dev):
+    """(name, pred, thresh, dilate, pool, logits): the main path's shape
+    first, then the dtypes, pools, modes and halo cases."""
     main = (torch.randn(MAIN_SHAPE, generator=gen, device=dev) * 3).to(torch.bfloat16)
-    cases.append(("main_bf16_logit", main, LOGIT_THRESH, True))
+    cases = [("main_bf16_logits_pool2", main, LOGIT_THRESH, True, 2, True)]
+    lg = torch.randn((2, 128, 256), generator=gen, device=dev) * 4
+    cases.append(("f32_logits_pool2", lg, LOGIT_THRESH, True, 2, True))
+    cases.append(("f32_logits_pool4_no_dilate", lg, LOGIT_THRESH, False, 4, True))
+    pr = torch.sigmoid(lg)
+    cases.append(("f32_probs_pool4", pr, 0.3, True, 4, False))
+    cases.append(("bf16_probs_pool2", pr.to(torch.bfloat16), 0.3, True, 2, False))
+    cases.append(("bf16_logits_pool4", lg.to(torch.bfloat16), LOGIT_THRESH, True, 4, True))
+    halo = torch.full((2, 128, 256), -6.0, device=dev)
+    halo[0, 63, 100] = 2.0  # last row of a 64-row tile
+    halo[1, 7, 0] = 2.0  # row 8r-1 of the next packed row, column 0
+    halo[1, 8, 255] = 2.0
+    halo[1, 15, 8] = 2.0  # column 8: the left neighbour of a lane's first column
+    cases.append(("tile_halo_logits", halo, LOGIT_THRESH, True, 2, True))
+    tb = torch.tensor(LOGIT_THRESH).to(torch.bfloat16).to(dev)
+    step = torch.randint(-1, 2, (2, 64, 128), generator=gen, device=dev)
+    atb = (tb.float() + step * 0.0078125 * tb.abs().float()).to(torch.bfloat16)
+    cases.append(("at_threshold_bf16", atb, LOGIT_THRESH, True, 2, True))
+    return main, cases
+
+
+def _mask_cases(gen, dev, main):
+    """(name, pred, thresh, dilate) for the two mask-only entry points."""
+    cases = [("main_bf16_logit", main, LOGIT_THRESH, True)]
     small = torch.rand((1, 64, 128), generator=gen, device=dev)
     cases.append(("b1_f32_dilate", small, 0.3, True))
     cases.append(("b1_f32_no_dilate", small, 0.3, False))
@@ -137,47 +207,79 @@ def kernel_phase() -> dict:
     atb = torch.where(torch.rand((2, 64, 128), generator=gen, device=dev) > 0.5,
                       tb.to(dev), torch.full((), -5.0, dtype=torch.bfloat16, device=dev))
     cases.append(("at_threshold_bf16", atb, LOGIT_THRESH, True))
+    return cases
+
+
+def kernel_phase() -> dict:
+    """The det-epilogue kernel against its plain version on the card,
+    bit-exact (mask and prob map), the mask-only entry points likewise,
+    then timed at the main path's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    main, cases = _epilogue_cases(gen, dev)
     max_err = 0
-    for name, x, th, dil in cases:
+    for name, x, th, dil, pool, lg in cases:
+        mask, prob = db_pack.db_epilogue(x, th, dil, pool, lg)
+        torch.cuda.synchronize()
+        ref_mask, ref_prob = db_pack.db_epilogue_plain(x, th, dil, pool, lg)
+        exact = torch.equal(mask, ref_mask) and torch.equal(prob, ref_prob)
+        max_err = max(max_err, int((mask.int() - ref_mask.int()).abs().max()),
+                      int((prob.int() - ref_prob.int()).abs().max()))
+        say("kernel", fn="db_epilogue", case=name, shape=tuple(x.shape),
+            dtype=str(x.dtype).split(".")[-1], pool=pool, logits=lg, exact=exact,
+            mask_ones=int(mask.ne(0).sum()), prob_sum=int(prob.sum()))
+        if not exact:
+            fail(f"db_epilogue differs from its plain version on {name}: mask "
+                 f"{int(mask.ne(ref_mask).sum())}, prob {int(prob.ne(ref_prob).sum())} bytes")
+    for name, x, th, dil in _mask_cases(gen, dev, main):
         got = db_pack.binarize_dilate_pack_rows_batch(x, th, dil)
         torch.cuda.synchronize()
-        ref = db_pack.binarize_dilate_pack_rows_batch_plain(x, th, dil)
-        exact = torch.equal(got, ref)
-        err = int((got.int() - ref.int()).abs().max())
-        max_err = max(max_err, err)
-        say("kernel", case=name, shape=tuple(x.shape), dtype=str(x.dtype).split(".")[-1],
+        exact = torch.equal(got, db_pack.binarize_dilate_pack_rows_batch_plain(x, th, dil))
+        say("kernel", fn="binarize_dilate_pack_rows_batch", case=name, shape=tuple(x.shape),
             exact=exact, ones=int(got.ne(0).sum()))
         if not exact:
-            fail(f"db_pack kernel differs from its plain version on {name}")
+            fail(f"the mask-only kernel differs from its plain version on {name}")
     # the one-map entry point (TPU _kernel) is the B = 1 case
     one = db_pack.binarize_dilate_pack_rows(main[0], LOGIT_THRESH, True)
     if not torch.equal(one, db_pack.binarize_dilate_pack_rows_batch_plain(
             main[:1], LOGIT_THRESH, True)[0]):
         fail("binarize_dilate_pack_rows (B = 1) differs from the plain version")
-    say("kernel", case="b1_entry_point", exact=True)
+    say("kernel", fn="binarize_dilate_pack_rows", case="b1_entry_point", exact=True)
 
-    iters = 500
-    ms = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch(main, LOGIT_THRESH, True),
-                 iters)
-    plain_ms = cuda_ms(
-        lambda: db_pack.binarize_dilate_pack_rows_batch_plain(main, LOGIT_THRESH, True), iters
-    )
     b, h, w = MAIN_SHAPE
-    nbytes = b * h * w * main.element_size() + b * (h // 8) * w
+    # each input byte read once, each output byte written once
+    nbytes = b * h * w * main.element_size() + b * (h // 8) * w + b * (h // 2) * (w // 2)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("kernel", timed_shape=MAIN_SHAPE, iters=iters, ms=f"{ms:.6f}",
-        plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes)
-    # the one-map entry point (TPU _kernel) on one page's logits: not on
-    # the main path, timed for the kernel table
+    fused = lambda: db_pack.db_epilogue(main, LOGIT_THRESH, True, 2, True)  # noqa: E731
+    out = {"ms": device_ms(fused), "host_ms": host_ms(fused), "eager_ms": cuda_ms(fused, 500),
+           "plain_ms": cuda_ms(lambda: db_pack.db_epilogue_plain(
+               main, LOGIT_THRESH, True, 2, True), 500),
+           "bound_ms": bound_ms, "max_abs_err": max_err}
+    say("kernel", fn="db_epilogue", timed_shape=MAIN_SHAPE, device_ms=f"{out['ms']:.6f}",
+        host_ms=f"{out['host_ms']:.6f}", eager_ms=f"{out['eager_ms']:.6f}",
+        plain_ms=f"{out['plain_ms']:.6f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes)
+    # the mask-only mode (TPU _kernel_batched's function) and the one-map
+    # entry point (TPU _kernel): not on the main path, timed for the table
+    k1 = lambda: db_pack.binarize_dilate_pack_rows_batch(main, LOGIT_THRESH, True)  # noqa: E731
+    k1_bytes = b * h * w * main.element_size() + b * (h // 8) * w
+    out["mask_only_ms"] = device_ms(k1)
+    out["mask_only_host_ms"] = host_ms(k1)
+    out["mask_only_plain_ms"] = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch_plain(
+        main, LOGIT_THRESH, True), 500)
+    out["mask_only_bound_ms"] = k1_bytes / HBM_BYTES_PER_S * 1e3
+    say("kernel", fn="binarize_dilate_pack_rows_batch", timed_shape=MAIN_SHAPE,
+        device_ms=f"{out['mask_only_ms']:.6f}", host_ms=f"{out['mask_only_host_ms']:.6f}",
+        plain_ms=f"{out['mask_only_plain_ms']:.6f}",
+        bound_ms=f"{out['mask_only_bound_ms']:.6f}", bytes=k1_bytes)
     page = main[0]
-    ms1 = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True), iters)
+    ms1 = device_ms(lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True))
     plain1 = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch_plain(
-        page[None], LOGIT_THRESH, True), iters)
-    bytes1 = nbytes // b
-    say("kernel", entry="binarize_dilate_pack_rows", timed_shape=tuple(page.shape),
-        ms=f"{ms1:.6f}", plain_ms=f"{plain1:.6f}",
+        page[None], LOGIT_THRESH, True), 500)
+    bytes1 = k1_bytes // b
+    say("kernel", fn="binarize_dilate_pack_rows", timed_shape=tuple(page.shape),
+        device_ms=f"{ms1:.6f}", plain_ms=f"{plain1:.6f}",
         bound_ms=f"{bytes1 / HBM_BYTES_PER_S * 1e3:.6f}", bytes=bytes1)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": max_err}
+    return out
 
 
 def _lines(results, page_ids):
@@ -222,7 +324,7 @@ def compare(label: str, got: list, ref_page, ref_boxes, ref_texts):
 
 def e2e_phase(fx) -> int:
     """Drive the main path, hold it to the fixture, time warm runs; returns
-    the db_pack launches of the main-path call."""
+    the db_epilogue launches of the main-path call."""
     chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
     weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
     t = time.perf_counter()
@@ -243,15 +345,20 @@ def e2e_phase(fx) -> int:
                              order=1, cval=255)
 
     # the main path: counts to 0 just before, read just after
+    db_pack.db_epilogue.launches = 0
     db_pack.binarize_dilate_pack_rows_batch.launches = 0
     t = time.perf_counter()
     res = dp.run_many(pages + [tinted, rotated])
     torch.cuda.synchronize()
-    launches = db_pack.binarize_dilate_pack_rows_batch.launches
+    launches = db_pack.db_epilogue.launches
+    mask_only = db_pack.binarize_dilate_pack_rows_batch.launches
     say("e2e", main_path_run_many_s=f"{time.perf_counter() - t:.3f}", images=len(res),
-        db_pack_launches=launches, formats="gray+yuv420")
+        db_epilogue_launches=launches, mask_only_launches=mask_only,
+        formats="gray+yuv420")
     if launches <= 0:
-        fail("the main path never launched the db_pack kernel")
+        fail("the main path never launched the db_epilogue kernel")
+    if mask_only:
+        fail("the main path launched the mask-only kernel beside db_epilogue")
     gray = _lines(res[:8], range(len(pages)))
     eq_g, n_g, d_g = compare("gray", gray, fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
     eq_t, n_t, d_t = compare("tinted", _lines(res[8:9], [0]), fx["jax_tinted_page"],
@@ -270,9 +377,9 @@ def e2e_phase(fx) -> int:
     cfg_rgb.engine.transfer_format = "rgb"
     dp_rgb = RettoSession(cfg_rgb, preset="mobile", charset=chars, weights=weights,
                           device="cuda").device_pipeline()
-    before = db_pack.binarize_dilate_pack_rows_batch.launches
+    before = db_pack.db_epilogue.launches
     res_rgb = dp_rgb.run_many([pages[1]])
-    rgb_launches = db_pack.binarize_dilate_pack_rows_batch.launches - before
+    rgb_launches = db_pack.db_epilogue.launches - before
     eq_r, n_r, d_r = compare("rgb", _lines(res_rgb, [1]), fx["jax_rgb_page"],
                              fx["jax_rgb_boxes"], fx["jax_rgb_texts"])
     agree, total = eq_g + eq_t + eq_o + eq_r, n_g + n_t + n_o + n_r
@@ -287,7 +394,7 @@ def e2e_phase(fx) -> int:
         gray_texts_equal_in_order=f"{texts_equal}/{len(fx['jax_texts'])}",
         box_max_px=f"{max(dists, default=0.0):.2f}",
         boxes_beyond_tol=sum(d > BOX_TOL_PX for d in dists),
-        rgb_db_pack_launches=rgb_launches)
+        rgb_db_epilogue_launches=rgb_launches)
     if total == 0 or frac < TEXT_MATCH_MIN:
         fail(f"only {agree}/{total} lines agree with the JAX pipeline")
     if max(dists, default=0.0) > BOX_MAX_PX:
@@ -303,18 +410,18 @@ def e2e_phase(fx) -> int:
     times = []
     launches16 = 0
     for _ in range(5):
-        db_pack.binarize_dilate_pack_rows_batch.launches = 0
+        db_pack.db_epilogue.launches = 0
         t = time.perf_counter()
         dp.run_many(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        launches16 = db_pack.binarize_dilate_pack_rows_batch.launches
+        launches16 = db_pack.db_epilogue.launches
     med = sorted(times)[len(times) // 2]
     stats = {k: (round(v, 6) if isinstance(v, float) else v)
              for k, v in dp.last_stats.items()}
     say("e2e", pages=len(batch), images_per_s_median=f"{len(batch) / med:.3f}",
         images_per_s_best=f"{len(batch) / min(times):.3f}",
-        run_s=[round(x, 4) for x in times], db_pack_launches_per_run=launches16)
+        run_s=[round(x, 4) for x in times], db_epilogue_launches_per_run=launches16)
     print("[e2e] last_stats " + json.dumps(stats), flush=True)
     return launches
 
@@ -330,7 +437,7 @@ def main() -> None:
     fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
     launches = e2e_phase(fx)
     kernel_line = {"kernels": [{
-        "name": "db_pack_rows",
+        "name": "db_epilogue",
         "route": "cuda",
         "source": "retto_tpu_torch/csrc/db_pack.cu",
         "replaces": "retto_tpu/ops/pallas/db_pack.py:153",
@@ -339,10 +446,16 @@ def main() -> None:
         "exact": True,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
+        "host_ms": k["host_ms"],
+        "eager_ms": k["eager_ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "mask_only_ms": k["mask_only_ms"],
+        "mask_only_host_ms": k["mask_only_host_ms"],
+        "mask_only_plain_ms": k["mask_only_plain_ms"],
+        "mask_only_bound_ms": k["mask_only_bound_ms"],
     }]}
     say("done", total_s=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps(kernel_line), flush=True)

@@ -25,8 +25,9 @@ def build_shared(
 ) -> Path:
     """Compile ``sources`` into ``BUILD_DIR/out_name`` with ``cmd_prefix``
     (the compiler and its flags; ``-o <tmp> <sources>`` is appended), unless
-    the library is newer than every source.  Raises ``RuntimeError`` with
-    the compiler's stderr on failure, ``subprocess.TimeoutExpired`` after
+    the library is newer than every source.  The compiler's output goes to
+    ``BUILD_DIR/<out_name>.log``.  Raises ``RuntimeError`` with the
+    compiler's stderr on failure, ``subprocess.TimeoutExpired`` after
     ``timeout`` seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / out_name
@@ -36,8 +37,9 @@ def build_shared(
     tmp = out.with_name(f"{out_name}.{os.getpid()}.tmp")
     cmd = [*cmd_prefix, "-o", str(tmp), *map(str, sources)]
     try:
-        subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                       check=True)
+        done = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                              check=True)
+        out.with_name(f"{out_name}.log").write_text(done.stdout + done.stderr)
         os.replace(tmp, out)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(

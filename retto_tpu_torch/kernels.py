@@ -5,7 +5,10 @@ All sources under ``csrc/`` compile into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o .torch_build/libretto_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -o .torch_build/libretto_kernels.so csrc/*.cu
+
+(``-Xptxas -v``: each kernel's registers, shared memory and spills, kept
+in ``.torch_build/libretto_kernels.so.log``.)
 
 Each C launcher takes device pointers, ints and the CUDA stream, launches
 on that stream and returns ``cudaGetLastError()``; the wrappers (for
@@ -20,13 +23,13 @@ import os
 import shutil
 from pathlib import Path
 
-from ._build import build_shared
+from ._build import BUILD_DIR, build_shared
 
-__all__ = ["NVCC_FLAGS", "load", "check_launch"]
+__all__ = ["NVCC_FLAGS", "load", "check_launch", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB: ctypes.CDLL | None = None
 
 
@@ -47,12 +50,19 @@ def load() -> ctypes.CDLL:
                             "libretto_kernels.so", timeout=300)
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rt_db_pack_rows.restype = ci
-        lib.rt_db_pack_rows.argtypes = [vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.rt_db_epilogue.restype = ci
+        lib.rt_db_epilogue.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, ci,
+                                       ci, vp]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         lib.rt_cuda_error_string.argtypes = [ci]
         _LIB = lib
     return _LIB
+
+
+def build_log() -> str:
+    """What nvcc and ptxas printed for the last build (registers, spills)."""
+    log = BUILD_DIR / "libretto_kernels.so.log"
+    return log.read_text() if log.exists() else ""
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -6,17 +6,24 @@ boundary.  Submodules carry the Flax scope names (``Conv_0``,
 ``BatchNorm_0``, ...) as attribute names, so a Flax checkpoint key maps onto
 a state-dict key by one rule (``weights/convert.py``).
 
-Precision follows Flax: a Conv or Dense casts its input and its parameters
-to the compute dtype (bf16 for the shipped presets) and returns that dtype;
-BatchNorm and LayerNorm compute in float32 and cast back.  Elementwise
-ops (hard-swish, GELU, the SE gate) run op by op in the compute dtype, so
-bf16 rounds after each op as in the JAX model.
+Precision follows Flax as XLA compiles it: a Conv or Dense casts its input
+and its parameters to the compute dtype (bf16 for the shipped presets) and
+returns that dtype; BatchNorm and LayerNorm compute in float32 and cast
+back.  One exception: XLA drops the bf16 rounding of a convolution whose
+only consumer converts it to float32, which is every ``ConvBNAct`` conv
+(the BatchNorm's first step), so there the conv runs in float32 on the
+compute-dtype values and the BatchNorm rounds once.  Every other conv and
+every Dense keeps its rounding (a bias add or a residual add consumes it
+in bf16); tests/test_torch_bf16_sites.py reads the sites from XLA's
+compiled HLO.  Elementwise ops (hard-swish, GELU, the SE gate) run op by
+op in the compute dtype, so bf16 rounds after each op as in the JAX model.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +32,7 @@ from torch import nn
 __all__ = [
     "hard_sigmoid",
     "hard_swish",
+    "mean_f32",
     "ACTIVATIONS",
     "Conv",
     "Dense",
@@ -39,20 +47,37 @@ __all__ = [
 ]
 
 
+def _const(v: float, like: torch.Tensor) -> float:
+    """A Python constant as JAX sees it beside an array: a weakly typed
+    scalar takes the array's dtype (bf16(0.2) = 0.2001953125)."""
+    return float(torch.tensor(v, dtype=like.dtype))
+
+
 def hard_sigmoid(x: torch.Tensor, slope: float = 0.2, offset: float = 0.5) -> torch.Tensor:
     """Paddle-style hard sigmoid (common.py:37-40)."""
-    return torch.clamp(x * slope + offset, 0.0, 1.0)
+    return torch.clamp(x * _const(slope, x) + _const(offset, x), 0.0, 1.0)
 
 
 def hard_swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    """``x * clip(x + 3, 0, 6) / 6``; XLA turns the division by the constant
+    into a multiply by float32(1/6)."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``flax.linen.gelu`` (approximate=True, the tanh form; svtr.py:102),
-    written out op by op so that bf16 rounds where JAX rounds."""
-    cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+    written out op by op so that bf16 rounds where XLA rounds: the
+    constants in the compute dtype, ``x**3`` as ``(x * x) * x``."""
+    inner = _const(math.sqrt(2.0 / math.pi), x) * (x + _const(0.044715, x) * (x * x * x))
+    cdf = 0.5 * (1.0 + torch.tanh(inner))
     return x * cdf
+
+
+def mean_f32(x: torch.Tensor, dim) -> torch.Tensor:
+    """``jnp.mean`` as XLA computes it: a float32 sum times float32(1/n)."""
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    n = math.prod(x.shape[d] for d in dims)
+    return x.float().sum(dim=dims, keepdim=True) * (1.0 / n)
 
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -76,32 +101,62 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+@contextlib.contextmanager
+def _tf32_convs() -> Iterator[None]:
+    """Lets cuDNN run the float32 convs inside in TF32, and restores the
+    caller's setting after.  Only for operands that hold bf16 values:
+    TF32's 10-bit mantissa carries bf16's 7 bits exactly and each product
+    fits in float32, so TF32 computes a float32 conv of the same values at
+    the tensor cores' rate; only the order and rounding of its sums differ
+    from full float32 (which costs 2.7x the det forward on the H100,
+    PERF.md)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv(padding="SAME")`` in NCHW: input and parameters are cast to
-    the parameter dtype (the compute dtype once the model is cast)."""
+    the parameter dtype (the compute dtype once the model is cast).  With
+    ``f32_out`` the conv runs in float32 on those cast values and returns
+    float32 (no rounding of the result to the compute dtype)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel=1, stride=1, groups: int = 1,
                  bias: bool = True):
         super().__init__(in_ch, out_ch, _pair(kernel), _pair(stride), padding=0,
                          groups=groups, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         ph = _same_pads(x.shape[2], kh, sh)
         pw = _same_pads(x.shape[3], kw, sw)
-        x = x.to(self.weight.dtype)
+        x, w, b = x.to(self.weight.dtype), self.weight, self.bias
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (ph[0], pw[0]),
-                            groups=self.groups)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, groups=self.groups)
+            pad = (ph[0], pw[0])
+        else:
+            x, pad = F.pad(x, (pw[0], pw[1], ph[0], ph[1])), 0
+        if not f32_out or w.dtype == torch.float32:
+            return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
+        x, w = x.float(), w.float()
+        b = None if b is None else b.float()
+        with _tf32_convs():
+            return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
 
 
 class Dense(nn.Linear):
-    """``nn.Dense``: input cast to the parameter dtype."""
+    """``nn.Dense``: input cast to the parameter dtype; the product rounds to
+    that dtype before the bias add, which rounds again (two ops in Flax, not
+    a fused bias).  With ``f32_out`` the bias add's float32 sum is returned
+    unrounded."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+    def forward(self, x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
+        y = F.linear(x.to(self.weight.dtype), self.weight)
+        if f32_out:
+            return y.float() + self.bias.float()
+        return y + self.bias
 
 
 class BatchNorm(nn.Module):
@@ -125,7 +180,9 @@ class BatchNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """Flax ``nn.LayerNorm`` over the last axis: eps **1e-6** (svtr.py:95),
-    statistics and affine in float32, cast back to the input dtype."""
+    statistics and affine in float32.  Returns float32: the caller rounds to
+    its compute dtype (XLA hands a LayerNorm the unrounded float32 sum of
+    the bias or residual add before it, see ``models.svtr``)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -134,13 +191,14 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                            self.bias.float(), self.eps)
 
 
 class ConvBNAct(nn.Module):
-    """Conv (no bias) + BatchNorm + activation (common.py:59-84)."""
+    """Conv (no bias) + BatchNorm + activation (common.py:59-84).  The conv's
+    output stays float32 into the BatchNorm, which rounds to the compute
+    dtype once, as XLA compiles the Flax module."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel=3, stride=1, groups: int = 1,
                  act: str = "hardswish"):
@@ -150,7 +208,8 @@ class ConvBNAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ACTIVATIONS[self.act](self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_0(self.Conv_0(x, f32_out=True))
+        return ACTIVATIONS[self.act](y.to(self.Conv_0.weight.dtype))
 
 
 class SEModule(nn.Module):
@@ -163,7 +222,7 @@ class SEModule(nn.Module):
         self.Conv_1 = Conv(max(ch // reduction, 1), ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        s = mean_f32(x, (2, 3)).to(x.dtype)
         s = self.Conv_1(F.relu(self.Conv_0(s)))
         return x * hard_sigmoid(s)
 

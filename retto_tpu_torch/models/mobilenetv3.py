@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import ConvBNAct, Dense, space_to_depth
+from .common import ConvBNAct, Dense, mean_f32, space_to_depth
 
 __all__ = ["ClsModel"]
 
@@ -39,5 +39,6 @@ class ClsModel(nn.Module):
         for conv in (self.ConvBNAct_0, self.ConvBNAct_1, self.ConvBNAct_2,
                      self.ConvBNAct_3):
             x = conv(x)
-        x = x.float().mean(dim=(2, 3)).to(x.dtype)
-        return torch.softmax(self.Dense_0(x).float(), dim=-1)
+        x = mean_f32(x, (2, 3)).flatten(1).to(x.dtype)
+        # the logits reach the softmax as the unrounded float32 bias add
+        return torch.softmax(self.Dense_0(x, f32_out=True), dim=-1)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ACTIVATIONS, ConvBNAct, Dense, LayerNorm, SEModule
+from .common import ACTIVATIONS, ConvBNAct, Dense, LayerNorm, SEModule, mean_f32
 
 __all__ = ["DSConv", "LCNetBackbone", "MultiHeadDotProductAttention", "SVTRBlock",
            "RecModel"]
@@ -67,7 +67,7 @@ class LCNetBackbone(nn.Module):
         x = self.ConvBNAct_0(x)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return x.float().mean(dim=2).to(x.dtype).transpose(1, 2)
+        return mean_f32(x, 2).squeeze(2).to(x.dtype).transpose(1, 2)
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -91,19 +91,38 @@ class MultiHeadDotProductAttention(nn.Module):
         n, t, d = x.shape
         h = self.num_heads
         dh = d // h
-        qkv = F.linear(x.to(self.in_proj_weight.dtype), self.in_proj_weight,
-                       self.in_proj_bias)
+        # the product rounds before the bias add, as in Flax's DenseGeneral
+        qkv = F.linear(x.to(self.in_proj_weight.dtype), self.in_proj_weight) + self.in_proj_bias
         q, k, v = (z.reshape(n, t, h, dh) for z in qkv.split(d, dim=-1))
-        q = q / torch.tensor(math.sqrt(dh), dtype=q.dtype, device=q.device)
+        return self.out_proj(self.attend(q, k, v).reshape(n, t, d))
+
+    @staticmethod
+    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """[N, T, H, Dh] q, k, v -> [N, T, H, Dh]: flax's
+        ``dot_product_attention`` as XLA:CPU compiles it.  The query is
+        multiplied by float32(1 / sqrt(Dh) in the compute dtype) and
+        rounded; the softmax subtracts the max in the compute dtype, sums
+        the float32 exps unrounded and divides the rounded exps by the
+        rounded sum."""
+        dh = q.shape[-1]
+        inv = 1.0 / float(torch.tensor(math.sqrt(dh), dtype=q.dtype))
+        q = (q.float() * inv).to(q.dtype)
         w = torch.einsum("nqhd,nkhd->nhqk", q, k)
-        w = torch.softmax(w.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, t, d)
-        return self.out_proj(out)
+        e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
+        w = e.to(q.dtype) / e.sum(dim=-1, keepdim=True).to(q.dtype)
+        return torch.einsum("nhqk,nkhd->nqhd", w, v)
 
 
 class SVTRBlock(nn.Module):
     """Pre-norm global mixing block: LN -> MHSA -> LN -> MLP
-    (svtr.py:87-106)."""
+    (svtr.py:87-106).
+
+    ``forward(x, x32)`` takes the block input twice: rounded to the compute
+    dtype (``x``, what the residual adds read) and as the float32 sum it was
+    rounded from (``x32``, what the LayerNorm reads).  XLA:CPU hands each
+    LayerNorm the unrounded float32 output of the bias or residual add
+    before it, and the next residual add the rounded one; the block returns
+    both for its output."""
 
     def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 2.0):
         super().__init__()
@@ -114,10 +133,14 @@ class SVTRBlock(nn.Module):
         self.Dense_0 = Dense(dim, hidden)
         self.Dense_1 = Dense(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
-        y = ACTIVATIONS["gelu"](self.Dense_0(self.LayerNorm_1(x)))
-        return x + self.Dense_1(y)
+    def forward(self, x: torch.Tensor, x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        dt = x.dtype
+        y = self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x32).to(dt))
+        x32 = x.float() + y.float()
+        x = x32.to(dt)
+        y = ACTIVATIONS["gelu"](self.Dense_0(self.LayerNorm_1(x32).to(dt)))
+        x32 = x.float() + self.Dense_1(y).float()
+        return x32.to(dt), x32
 
 
 class RecModel(nn.Module):
@@ -139,7 +162,10 @@ class RecModel(nn.Module):
         self.Dense_1 = Dense(mixer_dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        seq = self.Dense_0(self.LCNetBackbone_0(x))
+        feats = self.LCNetBackbone_0(x)
+        seq32 = self.Dense_0(feats, f32_out=True)
+        seq = seq32.to(feats.dtype)
         for name in self.mixer:
-            seq = getattr(self, name)(seq)
-        return torch.softmax(self.Dense_1(self.LayerNorm_0(seq)).float(), dim=-1)
+            seq, seq32 = getattr(self, name)(seq, seq32)
+        logits = self.Dense_1(self.LayerNorm_0(seq32).to(seq.dtype), f32_out=True)
+        return torch.softmax(logits, dim=-1)

@@ -3,7 +3,7 @@
 Port of ``retto_tpu/pipeline/device_pipeline.py``.  Each image is uploaded
 once at session resolution as uint8 (gray 1 B/px, YUV 4:2:0 1.5 B/px or
 RGB 3 B/px); the det resize, the normalize, the three model forwards, the
-binarize/dilate/bit-pack epilogue (the CUDA kernel of ``ops.db_pack``),
+det epilogue (mask and pooled prob map, the CUDA kernel of ``ops.db_pack``),
 the crop warps and the CTC decode run on the device.  The host receives
 the 1-bit det mask, a 2x2-pooled u8 prob map, per-crop cls probabilities
 and CTC indices/keep-masks/scores, and runs the sequential tail: contours,
@@ -24,7 +24,9 @@ Differences from the JAX pipeline, all of them scheduling:
 Precision (stated here because a device changes it): contractions run in
 the det model's compute dtype (bf16 for the shipped checkpoints); the BGR
 normalize, YUV->RGB and the warp tails run in float32, and TF32 is off for
-float32 matmuls and convolutions on CUDA.
+float32 matmuls and convolutions on CUDA, except inside the models' convs
+that feed a BatchNorm (float32 sums of bf16 values, which TF32 computes
+exactly; ``models.common``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ..image.warp import _axis_matrix, warp_crops_multi
 from ..image.yuv import rgb_to_yuv420, yuv420_to_rgb_device, yuv_planes_to_rgb
 from ..ops.charset import CharacterDict
 from ..ops.ctc import ctc_greedy_decode
-from ..ops.db_pack import binarize_dilate_pack_rows_batch, unpack_rows
+from ..ops.db_pack import db_epilogue, pooled_prob_plain, unpack_rows
 from ..ops.db_post import binarize_dilate_packed, unpack_mask
 from ..ops.det_postprocess import det_candidates, det_finalize
 from ..results import (
@@ -298,30 +300,22 @@ class DevicePipeline:
         mh, mw = dh // s, dw // s
         dilate = det_cfg.use_dilation and det_cfg.dilation_kernel is not None
         pred_map = pred[:, 0]
-        if s > 1:
-            # the head returns logits: p > t  <=>  logit > ln(t / (1 - t))
-            t = float(det_cfg.thresh)
-            bin_thresh = float(math.log(t / (1.0 - t)))
-            prob_map = torch.sigmoid(pred_map)
-        else:
-            bin_thresh = float(det_cfg.thresh)
-            prob_map = pred_map
-        if mh % 64 == 0 and mw % 128 == 0:
-            # fused binarize+dilate+bitpack (CUDA kernel on the card):
-            # row-packed [B, mh/8, mw]
-            packed = binarize_dilate_pack_rows_batch(
-                pred_map.contiguous(), bin_thresh, dilate
-            )
+        # the head returns logits when s > 1: p > t  <=>  logit > ln(t / (1 - t))
+        logits = s > 1
+        t = float(det_cfg.thresh)
+        bin_thresh = float(math.log(t / (1.0 - t))) if logits else t
+        # the mean-pooled u8 prob map on the det/4 grid rides down with the mask
+        pf = max(4 // s, 1)
+        if mh % 64 == 0 and mw % 128 == 0 and pf in (2, 4):
+            # one pass (CUDA kernel on the card): row-packed mask
+            # [B, mh/8, mw] and the pooled prob map
+            packed, prob_small = db_epilogue(pred_map.contiguous(), bin_thresh, dilate,
+                                             pf, logits)
         else:
             packed = torch.stack(
                 [binarize_dilate_packed(p, bin_thresh, dilate) for p in pred_map]
             )
-        # mean-pooled u8 prob map on the det/4 grid rides down with the mask
-        pf = max(4 // s, 1)
-        b = prob_map.shape[0]
-        pool = prob_map.to(torch.float32).reshape(b, mh // pf, pf, mw // pf, pf)
-        pool = pool.sum(dim=(2, 4)) * (255.0 / (pf * pf))
-        prob_small = torch.clamp(torch.round(pool), 0, 255).to(torch.uint8)
+            prob_small = pooled_prob_plain(pred_map, pf, logits)
         return packed, prob_small, rgb_u8
 
     def _clsrec_fwd(

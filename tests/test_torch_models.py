@@ -2,11 +2,12 @@
 
 Tolerances:
 * float32: max |torch - flax| <= 1e-4 * max |flax| (summation order only);
-* bfloat16: the two frameworks round in different places (XLA:CPU keeps a
-  convolution's output in f32 until the BatchNorm, PyTorch rounds it to
-  bf16), and bf16 keeps 8 mantissa bits, so the outputs are held to
-  loose bounds measured with ~2x headroom: det logits 2% of max |logit|,
-  cls probabilities 2e-3, rec probabilities 0.06.
+* bfloat16: the port rounds where XLA:CPU rounds (tests/test_torch_bf16_sites.py),
+  but the two frameworks' kernels sum in different orders, and a float32
+  difference that crosses a bf16 rounding boundary moves a value by one
+  bf16 step, which later layers carry on; the outputs are held to bounds
+  measured with ~2x headroom: det logits 1.3% of max |logit| (measured
+  0.64%), cls probabilities 1e-4 (4.2e-5), rec probabilities 6% (2.8%).
 
 Each parity trap of the port is pinned by its own test: Flax SAME padding,
 the tanh GELU, LayerNorm eps 1e-6 and the linear resize."""
@@ -38,9 +39,9 @@ from retto_tpu_torch.models.registry import torch_dtype
 from retto_tpu_torch.weights import load_flax_params, load_params_meta
 
 TOL = {  # kind -> (float32 relative, bfloat16 relative)
-    "det": (1e-4, 0.02),
-    "cls": (1e-4, 0.01),
-    "rec": (1e-4, 0.15),
+    "det": (1e-4, 0.013),
+    "cls": (1e-4, 1e-4),
+    "rec": (1e-4, 0.06),
 }
 SHAPES = {
     "det": [(1, 3, 128, 192), (2, 3, 64, 256)],

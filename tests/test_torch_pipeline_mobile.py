@@ -80,10 +80,10 @@ def test_fixture_still_matches_jax(runs):
 
 def test_port_on_all_fixture_pages_against_stored_jax():
     """All 8 gray fixture pages against the JAX outputs stored in the
-    fixture.  Texts equal on every line.  Boxes: within 1 px on at least 95%
-    of the lines and within 4 px on all (one stride-2 mask pixel is ~2 page
-    px, and bf16 flips a few mask pixels: 7 of 196,608 on page 3, which
-    moves one box by 3 px; ROADMAP Queue 3)."""
+    fixture.  Texts equal on every line.  Boxes: every corner within 0.5 px
+    (reached: 0.0 on all 35 lines, since the BatchNorm convs keep their
+    float32 sums as XLA does; before, 7 of 196,608 mask pixels of page 3
+    differed and moved one box by 3 px; ROADMAP Queue 3)."""
     fx = np.load(FIXTURE)
     chars = (ROOT / "trained_weights" / "charset.txt").read_text().splitlines()
     weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
@@ -96,4 +96,4 @@ def test_port_on_all_fixture_pages_against_stored_jax():
     boxes = np.asarray([b.box.pts for r in res for b in r.det_result], np.float32)
     assert texts == [str(t) for t in fx["jax_texts"]]
     d = np.abs(boxes - fx["jax_boxes"]).reshape(len(boxes), -1).max(axis=1)
-    assert (d <= 1.0).mean() >= 0.95 and d.max() <= 4.0, d
+    assert d.max() <= 0.5, d

@@ -9,15 +9,41 @@ page twice) under ``torch.profiler`` and prints one JSON line:
 * ``device_busy_ms``: the union of the CUDA kernel and memcpy intervals in
   that window, and ``device_idle_share`` = 1 - busy / wall;
 * ``kernels``: the top device-time entries of ``key_averages()``;
-* ``host_phases``: the pipeline's own ``last_stats`` (seconds).
+* ``host_phases``: the pipeline's own ``last_stats`` (seconds);
+* ``det_epilogue``: the det epilogue's kernels in that call, their count and
+  device time: the ``db_epilogue`` kernel, or, in a tree from before it
+  (``--root``), each ``sigmoid`` kernel with the 7 kernels that follow it
+  (the eager prob-map chain and the mask kernel);
+* ``det_forward_ms``: the det model's forward alone at the 16-page call's
+  chunk shape (4 x 1024 x 768 NHWC, the compute dtype), device time from
+  CUDA events around 20 calls after 10 warm-up calls;
+* ``epilogue_alone`` and ``mask_kernel_alone``: the det epilogue as
+  ``_det_fwd``'s aligned branch runs it (``db_epilogue``; in a tree from
+  before it, the mask kernel and the eager prob-map chain) and the
+  mask-only kernel, on seeded [4, 512, 384] bf16 logits: device time per
+  call from a CUDA graph and host time per call, with ``chip_smoke.py``'s
+  ``device_ms`` and ``host_ms``;
+* ``lines_agreeing_with_jax``: the 8 fixture pages of the call against the
+  JAX pipeline's stored lines, counted by ``chip_smoke.py``'s ``compare``.
 
-The Chrome trace goes to ``chiprun_out/torch_pipeline_trace.json``.
+``--f32-convs`` runs the convs that feed a BatchNorm in full float32
+instead of TF32 (``models.common._tf32_convs`` made a no-op), to measure
+what TF32 saves in the det forward and costs in agreement.
 
-    python3 tools/profile_torch_pipeline.py
+The Chrome trace goes to ``chiprun_out/torch_pipeline_trace<suffix>.json``.
+
+    python3 tools/profile_torch_pipeline.py [--root CHECKOUT] [--label NAME] [--f32-convs]
+
+``--root`` imports ``retto_tpu_torch`` from another checkout (for example
+the parent commit unpacked by ``git archive``), so that two trees are
+measured in one call on one card.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -28,11 +54,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-
-from retto_tpu_torch import RettoSession, SessionConfig  # noqa: E402
-from retto_tpu_torch.ops import db_pack  # noqa: E402
-from retto_tpu_torch.ops.charset import CharacterDict  # noqa: E402
+EPILOGUE_CHAIN = 8  # the parent's epilogue: sigmoid, the mask kernel, 6 eager ops
 
 
 def _union_ms(intervals: list[tuple[float, float]]) -> float:
@@ -47,9 +69,91 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
     return total / 1e3  # profiler times are in us
 
 
+def _epilogue(events: list) -> tuple[int, float]:
+    """(kernels, device ms) of the det epilogue among the call's device
+    kernel events."""
+    kern = sorted((e for e in events if "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower()), key=lambda e: e.time_range.start)
+    fused = [e for e in kern if "db_epilogue" in e.name]
+    if not fused:
+        fused = []
+        for i, e in enumerate(kern):
+            if "sigmoid" in e.name:
+                fused.extend(kern[i:i + EPILOGUE_CHAIN])
+    return len(fused), sum(e.time_range.end - e.time_range.start for e in fused) / 1e3
+
+
+def _det_forward_ms(dp, iters: int = 20) -> float:
+    model = dp._det_model
+    dt = getattr(model, "compute_dtype", None) or torch.float32
+    x = torch.randn((4, 1024, 768, 3), device="cuda").to(dt)
+    with torch.inference_mode():
+        for _ in range(10):
+            model(x, nhwc=True, raw_logits=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            model(x, nhwc=True, raw_logits=True)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py, loaded after the port so that its own
+    imports find the tree chosen by --root already imported."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def _epilogue_alone(chip_smoke, db_pack) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pred = (torch.randn(chip_smoke.MAIN_SHAPE, generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    t = chip_smoke.LOGIT_THRESH
+    b, h, w = pred.shape
+
+    def mask():
+        return db_pack.binarize_dilate_pack_rows_batch(pred, t, True)
+
+    if hasattr(db_pack, "db_epilogue"):
+        def epilogue():
+            return db_pack.db_epilogue(pred, t, True, 2, True)
+    else:
+        def epilogue():  # the aligned branch of the parent's _det_fwd
+            pool = torch.sigmoid(pred).to(torch.float32).reshape(b, h // 2, 2, w // 2, 2)
+            pool = pool.sum(dim=(2, 4)) * (255.0 / 4)
+            return mask(), torch.clamp(torch.round(pool), 0, 255).to(torch.uint8)
+
+    return {name: {"device_ms": chip_smoke.device_ms(fn), "host_ms": chip_smoke.host_ms(fn)}
+            for name, fn in (("epilogue_alone", epilogue), ("mask_kernel_alone", mask))}
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(ROOT), help="checkout to import the port from")
+    ap.add_argument("--label", default="", help="suffix of the trace file and label of the line")
+    ap.add_argument("--f32-convs", action="store_true",
+                    help="the convs that feed a BatchNorm in full float32, not TF32")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from retto_tpu_torch import RettoSession, SessionConfig
+    from retto_tpu_torch.ops import db_pack
+    from retto_tpu_torch.ops.charset import CharacterDict
+
+    if args.f32_convs:
+        from retto_tpu_torch.models import common
+
+        common._tf32_convs = contextlib.nullcontext
+    chip_smoke = _chip_smoke()
+
+    counter = getattr(db_pack, "db_epilogue", None) or db_pack.binarize_dilate_pack_rows_batch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True).stdout.strip()
@@ -61,21 +165,26 @@ def main() -> None:
         k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")
     }, device="cuda").device_pipeline()
     pages = [np.repeat(p[..., None], 3, axis=2) for p in fx["pages"]] * 2
-    for _ in range(3):
+    for _ in range(2):
         dp.run_many(pages)
+    res = dp.run_many(pages)
+    agree, total, _ = chip_smoke.compare("gray", chip_smoke._lines(res[:8], range(8)),
+                                         fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        db_pack.binarize_dilate_pack_rows_batch.launches = 0
+        counter.launches = 0
         t0 = time.perf_counter()
         dp.run_many(pages)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = db_pack.binarize_dilate_pack_rows_batch.launches
-    intervals = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            intervals.append((ev.time_range.start, ev.time_range.end))
+    launches = counter.launches
+    dev_events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+    intervals = [(ev.time_range.start, ev.time_range.end) for ev in dev_events]
+    epi_kernels, epi_ms = _epilogue(dev_events)
+    det_ms = _det_forward_ms(dp)
+    alone = _epilogue_alone(chip_smoke, db_pack)
     busy_ms = _union_ms(intervals)
     rows = []
     for a in prof.key_averages():
@@ -85,8 +194,11 @@ def main() -> None:
     rows.sort(reverse=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "torch_pipeline_trace.json"))
+    suffix = f"_{args.label}" if args.label else ""
+    prof.export_chrome_trace(str(out_dir / f"torch_pipeline_trace{suffix}.json"))
     print(json.dumps({
+        "label": args.label,
+        "root": str(Path(args.root).resolve()),
         "card": smi,
         "pages": len(pages),
         "wall_ms": wall_ms,
@@ -94,7 +206,12 @@ def main() -> None:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_events": len(intervals),
-        "db_pack_launches": launches,
+        "det_epilogue": {"counted_launches": launches, "kernels": epi_kernels,
+                         "device_ms": epi_ms},
+        "f32_convs": args.f32_convs,
+        "lines_agreeing_with_jax": f"{agree}/{total}",
+        "det_forward_ms": det_ms,
+        **alone,
         "kernels": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in rows[:15]],
         "host_phases": {k: v for k, v in dp.last_stats.items()},
