@@ -175,12 +175,16 @@ def _epilogue_cases(gen, dev):
     cases.append(("f32_probs_pool4", pr, 0.3, True, 4, False))
     cases.append(("bf16_probs_pool2", pr.to(torch.bfloat16), 0.3, True, 2, False))
     cases.append(("bf16_logits_pool4", lg.to(torch.bfloat16), LOGIT_THRESH, True, 4, True))
+    # pool 1: the map of a stride-4 det head is already on the det/4 grid
+    cases.append(("bf16_logits_pool1", lg.to(torch.bfloat16), LOGIT_THRESH, True, 1, True))
+    cases.append(("f32_logits_pool1_no_dilate", lg, LOGIT_THRESH, False, 1, True))
     halo = torch.full((2, 128, 256), -6.0, device=dev)
     halo[0, 63, 100] = 2.0  # last row of a 64-row tile
     halo[1, 7, 0] = 2.0  # row 8r-1 of the next packed row, column 0
     halo[1, 8, 255] = 2.0
     halo[1, 15, 8] = 2.0  # column 8: the left neighbour of a lane's first column
     cases.append(("tile_halo_logits", halo, LOGIT_THRESH, True, 2, True))
+    cases.append(("tile_halo_logits_pool1", halo, LOGIT_THRESH, True, 1, True))
     tb = torch.tensor(LOGIT_THRESH).to(torch.bfloat16).to(dev)
     step = torch.randint(-1, 2, (2, 64, 128), generator=gen, device=dev)
     atb = (tb.float() + step * 0.0078125 * tb.abs().float()).to(torch.bfloat16)

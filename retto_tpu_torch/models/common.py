@@ -102,20 +102,27 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 @contextlib.contextmanager
-def _tf32_convs() -> Iterator[None]:
-    """Lets cuDNN run the float32 convs inside in TF32, and restores the
-    caller's setting after.  Only for operands that hold bf16 values:
-    TF32's 10-bit mantissa carries bf16's 7 bits exactly and each product
-    fits in float32, so TF32 computes a float32 conv of the same values at
-    the tensor cores' rate; only the order and rounding of its sums differ
-    from full float32 (which costs 2.7x the det forward on the H100,
-    PERF.md)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
+def _tf32_convs(x: torch.Tensor) -> Iterator[None]:
+    """On a CUDA tensor, lets cuDNN run the float32 convs inside in TF32 and
+    restores the caller's setting after; elsewhere changes nothing.  Only
+    for operands that hold bf16 values: TF32's 10-bit mantissa carries
+    bf16's 7 bits exactly and each product fits in float32, so TF32
+    computes a float32 conv of the same values at the tensor cores' rate;
+    only the order and rounding of its sums differ from full float32.  The
+    switch is cuDNN's process-wide flag, held for the one conv: the
+    pipeline drives the models from one thread.  One flag, not
+    ``torch.backends.cudnn.flags``, which sets and restores every cuDNN
+    flag around each conv on a host-bound pipeline."""
+    if not x.is_cuda:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32 = prev
 
 
 class Conv(nn.Conv2d):
@@ -142,7 +149,7 @@ class Conv(nn.Conv2d):
             return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
         x, w = x.float(), w.float()
         b = None if b is None else b.float()
-        with _tf32_convs():
+        with _tf32_convs(x):
             return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
 
 

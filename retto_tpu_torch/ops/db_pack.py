@@ -35,7 +35,7 @@ __all__ = [
 ]
 
 _TILE_H = 64  # the det bucket grid guarantees H % 64 == 0 and W % 128 == 0
-_KERNEL_POOLS = (2, 4)
+_KERNEL_POOLS = (1, 2, 4)  # stride-4, stride-2 and stride-1 det maps
 
 
 def binarize_dilate_pack_rows_batch_plain(
@@ -95,7 +95,7 @@ def _check(pred: torch.Tensor, pool: int = 2) -> None:
     if pred.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"expected bf16 or f32, got {pred.dtype}")
     if pool not in _KERNEL_POOLS:
-        raise ValueError(f"pool must be 2 or 4, got {pool}")
+        raise ValueError(f"pool must be 1, 2 or 4, got {pool}")
 
 
 def _launch(pred: torch.Tensor, thresh: float, dilate: bool, pool: int, logits: bool,
@@ -129,7 +129,7 @@ def db_epilogue(
     logits: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, H, W] bf16/f32 (H % 64 == 0, W % 128 == 0) -> (mask u8
-    [B, H/8, W], prob u8 [B, H/pool, W/pool]), pool 2 or 4.  CUDA tensors
+    [B, H/8, W], prob u8 [B, H/pool, W/pool]), pool 1, 2 or 4.  CUDA tensors
     launch ``csrc/db_pack.cu`` once (counted in ``.launches``); CPU tensors
     take ``db_epilogue_plain``."""
     _check(pred, pool)

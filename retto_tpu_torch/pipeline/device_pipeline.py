@@ -5,10 +5,10 @@ once at session resolution as uint8 (gray 1 B/px, YUV 4:2:0 1.5 B/px or
 RGB 3 B/px); the det resize, the normalize, the three model forwards, the
 det epilogue (mask and pooled prob map, the CUDA kernel of ``ops.db_pack``),
 the crop warps and the CTC decode run on the device.  The host receives
-the 1-bit det mask, a 2x2-pooled u8 prob map, per-crop cls probabilities
-and CTC indices/keep-masks/scores, and runs the sequential tail: contours,
-min-area rects and unclip (``native`` ``rt_det_chunk``), and string
-assembly.
+the 1-bit det mask, a u8 prob map pooled to the det/4 grid, per-crop cls
+probabilities and CTC indices/keep-masks/scores, and runs the sequential
+tail: contours, min-area rects and unclip (``native`` ``rt_det_chunk``),
+and string assembly.
 
 Differences from the JAX pipeline, all of them scheduling:
 
@@ -306,7 +306,7 @@ class DevicePipeline:
         bin_thresh = float(math.log(t / (1.0 - t))) if logits else t
         # the mean-pooled u8 prob map on the det/4 grid rides down with the mask
         pf = max(4 // s, 1)
-        if mh % 64 == 0 and mw % 128 == 0 and pf in (2, 4):
+        if mh % 64 == 0 and mw % 128 == 0:
             # one pass (CUDA kernel on the card): row-packed mask
             # [B, mh/8, mw] and the pooled prob map
             packed, prob_small = db_epilogue(pred_map.contiguous(), bin_thresh, dilate,

@@ -60,7 +60,7 @@ def _maps(seed: int, shape, logits: bool) -> np.ndarray:
 
 
 @pytest.mark.parametrize("logits", [True, False])
-@pytest.mark.parametrize("pool", [2, 4])
+@pytest.mark.parametrize("pool", [1, 2, 4])
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
 def test_plain_equals_jax(bf16, pool, logits):
     x = _maps(pool + 2 * logits, (2, 128, 256), logits)
@@ -86,7 +86,7 @@ def test_main_shape_seeded_logits():
     assert int((old != ref_prob).sum()) > 10_000
 
 
-@pytest.mark.parametrize("pool", [2, 4])
+@pytest.mark.parametrize("pool", [1, 2, 4])
 def test_halo_cases(pool):
     """Row 8r-1 (the halo row of the next packed row), column 0, the last
     row of a 64-row tile, the bottom-right corner, and a column a lane's
@@ -131,7 +131,7 @@ def test_wrapper_routes_cpu_tensors_to_plain_and_checks_inputs():
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert (db_epilogue.launches, binarize_dilate_pack_rows_batch.launches) == before
     with pytest.raises(ValueError):
-        db_epilogue(x, LOGIT_T, True, 3, True)  # the kernel pools by 2 or 4
+        db_epilogue(x, LOGIT_T, True, 3, True)  # the kernel pools by 1, 2 or 4
     with pytest.raises(ValueError):
         db_epilogue(torch.rand((1, 60, 128)))
     with pytest.raises(TypeError):
@@ -141,14 +141,15 @@ def test_wrapper_routes_cpu_tensors_to_plain_and_checks_inputs():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_equals_plain():
+@pytest.mark.parametrize("pool", [1, 2, 4])
+def test_cuda_kernel_equals_plain(pool):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (run chip_smoke.py on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = (torch.randn((4, 512, 384), generator=gen, device="cuda") * 3).to(torch.bfloat16)
     before = db_epilogue.launches
-    got = db_epilogue(x, LOGIT_T, True, 2, True)
+    got = db_epilogue(x, LOGIT_T, True, pool, True)
     torch.cuda.synchronize()
     assert db_epilogue.launches == before + 1
-    ref = db_epilogue_plain(x, LOGIT_T, True, 2, True)
+    ref = db_epilogue_plain(x, LOGIT_T, True, pool, True)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

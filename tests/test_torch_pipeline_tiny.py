@@ -23,6 +23,8 @@ from retto_tpu.pipeline.session import RettoSession as JSession
 from retto_tpu.weights import save_params
 from retto_tpu_torch import BucketConfig, RettoSession, SessionConfig
 from retto_tpu_torch.ops.charset import CharacterDict
+from retto_tpu_torch.ops.db_pack import db_epilogue
+from retto_tpu_torch.pipeline import device_pipeline
 
 ARCH = {
     "det": dict(backbone="tpu_v2", widths=[32, 64, 96], depths=[1, 1, 1], inner_ch=32,
@@ -232,3 +234,59 @@ def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
         tc, jc = tt[j][0].cls_label, jt[j][0].cls_label
         assert tc.label == jc.label and abs(tc.score - jc.score) <= 1e-5
     assert any(ttexts[k].text for k in ttexts)
+
+
+def test_stride4_det_takes_the_epilogue_with_pool_1(tiny_weights, tmp_path, monkeypatch):
+    """A det whose head emits a stride-4 map (``out_stride=4``) on a
+    grid-aligned bucket (map 64 x 128) goes through ``db_epilogue`` with
+    pool 1, as the JAX pipeline sends such a map to its Pallas kernel; mask
+    and prob map equal the JAX pipeline's ``_det_fwd`` (tiny float32 det,
+    seeded init)."""
+    arch = dict(backbone="tpu_v2", widths=[16, 32, 48], depths=[1, 1, 1], inner_ch=16,
+                head_ch=16, out_stride=4)
+    det = build_det("bare", compute_dtype="float32", **arch)
+    variables = jax.jit(lambda r, v: det.init(r, v, train=True))(
+        jax.random.PRNGKey(3), jnp.zeros((1, 3, 64, 64)))
+    weights = dict(tiny_weights, det=str(tmp_path / "det.npz"))
+    save_params(weights["det"], variables, meta={"preset": "bare", "overrides": arch})
+
+    def cfg(cls):
+        c = cls()
+        c.det.limit_side_len = 512
+        c.det.thresh = 0.52  # near the random det's median probability
+        c.engine.compute_dtype = "float32"
+        c.engine.transfer_format = "rgb"
+        return c
+
+    chars = ascii_charset()
+    tdp = RettoSession(cfg(SessionConfig), charset=CharacterDict(chars),
+                       weights=weights, device="cpu").device_pipeline()
+    assert tdp._det_stride == 4
+    seen = []
+
+    def spy(pred, thresh, dilate, pool, logits):
+        seen.append((tuple(pred.shape), pool, logits))
+        return db_epilogue(pred, thresh, dilate, pool, logits)
+
+    monkeypatch.setattr(device_pipeline, "db_epilogue", spy)
+    rgb = np.random.default_rng(4).integers(0, 255, (256, 512, 3), dtype=np.uint8)
+    im, planes = tdp._decode_one(rgb)
+    dh, dw = 256, 512
+    vs = np.asarray([[im.ah, im.aw]], np.int32)
+    vd = np.asarray([[im.rh, im.rw]], np.int32)
+    with torch.inference_mode():
+        packed, prob, _ = tdp._det_fwd(tuple(torch.from_numpy(p[None]) for p in planes),
+                                       torch.from_numpy(vs), torch.from_numpy(vd),
+                                       dh, dw, im.fmt)
+    assert seen == [((1, 64, 128), 1, True)]
+    with JSession(cfg(JConfig), charset=JChars(chars),
+                  weights=weights).device_pipeline() as jdp:
+        jpacked, jprob, _ = jdp._det_fwd(
+            jdp._params["det"], tuple(jnp.asarray(p[None]) for p in planes),
+            jnp.asarray(vs), jnp.asarray(vd), dh=dh, dw=dw, fmt=im.fmt)
+    assert prob.shape == (1, 64, 128)
+    # the JAX CPU path packs along W, the port along rows: compare the bits
+    bits = np.unpackbits(packed.numpy(), axis=1)
+    np.testing.assert_array_equal(bits, np.unpackbits(np.asarray(jpacked), axis=2))
+    np.testing.assert_array_equal(prob.numpy(), np.asarray(jprob))
+    assert 0.1 < bits.mean() < 0.9  # a mixed mask: the compare decides pixels

@@ -10,39 +10,31 @@ page twice) under ``torch.profiler`` and prints one JSON line:
   that window, and ``device_idle_share`` = 1 - busy / wall;
 * ``kernels``: the top device-time entries of ``key_averages()``;
 * ``host_phases``: the pipeline's own ``last_stats`` (seconds);
-* ``det_epilogue``: the det epilogue's kernels in that call, their count and
-  device time: the ``db_epilogue`` kernel, or, in a tree from before it
-  (``--root``), each ``sigmoid`` kernel with the 7 kernels that follow it
-  (the eager prob-map chain and the mask kernel);
+* ``det_epilogue``: the ``db_epilogue`` kernels in that call, the count of
+  the wrapper and of the traced kernels, and their device time;
 * ``det_forward_ms``: the det model's forward alone at the 16-page call's
   chunk shape (4 x 1024 x 768 NHWC, the compute dtype), device time from
   CUDA events around 20 calls after 10 warm-up calls;
 * ``epilogue_alone`` and ``mask_kernel_alone``: the det epilogue as
-  ``_det_fwd``'s aligned branch runs it (``db_epilogue``; in a tree from
-  before it, the mask kernel and the eager prob-map chain) and the
-  mask-only kernel, on seeded [4, 512, 384] bf16 logits: device time per
+  ``_det_fwd``'s aligned branch runs it (``db_epilogue``) and its
+  mask-only mode, on seeded [4, 512, 384] bf16 logits: device time per
   call from a CUDA graph and host time per call, with ``chip_smoke.py``'s
   ``device_ms`` and ``host_ms``;
 * ``lines_agreeing_with_jax``: the 8 fixture pages of the call against the
   JAX pipeline's stored lines, counted by ``chip_smoke.py``'s ``compare``.
 
-``--f32-convs`` runs the convs that feed a BatchNorm in full float32
-instead of TF32 (``models.common._tf32_convs`` made a no-op), to measure
-what TF32 saves in the det forward and costs in agreement.
-
 The Chrome trace goes to ``chiprun_out/torch_pipeline_trace<suffix>.json``.
 
-    python3 tools/profile_torch_pipeline.py [--root CHECKOUT] [--label NAME] [--f32-convs]
+    python3 tools/profile_torch_pipeline.py [--root CHECKOUT] [--label NAME]
 
 ``--root`` imports ``retto_tpu_torch`` from another checkout (for example
 the parent commit unpacked by ``git archive``), so that two trees are
-measured in one call on one card.
+measured in one call on one card; that tree must have ``db_epilogue``.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib.util
 import json
 import subprocess
@@ -54,7 +46,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-EPILOGUE_CHAIN = 8  # the parent's epilogue: sigmoid, the mask kernel, 6 eager ops
 
 
 def _union_ms(intervals: list[tuple[float, float]]) -> float:
@@ -71,15 +62,8 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
 
 def _epilogue(events: list) -> tuple[int, float]:
     """(kernels, device ms) of the det epilogue among the call's device
-    kernel events."""
-    kern = sorted((e for e in events if "memcpy" not in e.name.lower()
-                   and "memset" not in e.name.lower()), key=lambda e: e.time_range.start)
-    fused = [e for e in kern if "db_epilogue" in e.name]
-    if not fused:
-        fused = []
-        for i, e in enumerate(kern):
-            if "sigmoid" in e.name:
-                fused.extend(kern[i:i + EPILOGUE_CHAIN])
+    events."""
+    fused = [e for e in events if "db_epilogue" in e.name]
     return len(fused), sum(e.time_range.end - e.time_range.start for e in fused) / 1e3
 
 
@@ -115,19 +99,12 @@ def _epilogue_alone(chip_smoke, db_pack) -> dict:
     pred = (torch.randn(chip_smoke.MAIN_SHAPE, generator=gen, device="cuda") * 3).to(
         torch.bfloat16)
     t = chip_smoke.LOGIT_THRESH
-    b, h, w = pred.shape
 
     def mask():
         return db_pack.binarize_dilate_pack_rows_batch(pred, t, True)
 
-    if hasattr(db_pack, "db_epilogue"):
-        def epilogue():
-            return db_pack.db_epilogue(pred, t, True, 2, True)
-    else:
-        def epilogue():  # the aligned branch of the parent's _det_fwd
-            pool = torch.sigmoid(pred).to(torch.float32).reshape(b, h // 2, 2, w // 2, 2)
-            pool = pool.sum(dim=(2, 4)) * (255.0 / 4)
-            return mask(), torch.clamp(torch.round(pool), 0, 255).to(torch.uint8)
+    def epilogue():
+        return db_pack.db_epilogue(pred, t, True, 2, True)
 
     return {name: {"device_ms": chip_smoke.device_ms(fn), "host_ms": chip_smoke.host_ms(fn)}
             for name, fn in (("epilogue_alone", epilogue), ("mask_kernel_alone", mask))}
@@ -137,8 +114,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(ROOT), help="checkout to import the port from")
     ap.add_argument("--label", default="", help="suffix of the trace file and label of the line")
-    ap.add_argument("--f32-convs", action="store_true",
-                    help="the convs that feed a BatchNorm in full float32, not TF32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -147,13 +122,7 @@ def main() -> None:
     from retto_tpu_torch.ops import db_pack
     from retto_tpu_torch.ops.charset import CharacterDict
 
-    if args.f32_convs:
-        from retto_tpu_torch.models import common
-
-        common._tf32_convs = contextlib.nullcontext
     chip_smoke = _chip_smoke()
-
-    counter = getattr(db_pack, "db_epilogue", None) or db_pack.binarize_dilate_pack_rows_batch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True).stdout.strip()
@@ -173,12 +142,12 @@ def main() -> None:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        counter.launches = 0
+        db_pack.db_epilogue.launches = 0
         t0 = time.perf_counter()
         dp.run_many(pages)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = counter.launches
+    launches = db_pack.db_epilogue.launches
     dev_events = [ev for ev in prof.events()
                   if ev.device_type == torch.autograd.DeviceType.CUDA]
     intervals = [(ev.time_range.start, ev.time_range.end) for ev in dev_events]
@@ -208,7 +177,6 @@ def main() -> None:
         "device_events": len(intervals),
         "det_epilogue": {"counted_launches": launches, "kernels": epi_kernels,
                          "device_ms": epi_ms},
-        "f32_convs": args.f32_convs,
         "lines_agreeing_with_jax": f"{agree}/{total}",
         "det_forward_ms": det_ms,
         **alone,
