@@ -21,10 +21,22 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    page, one tinted and rotated page that takes the gather warp and the
    cls flip, one run with ``transfer_format="rgb"``), held to the JAX
    pipeline's texts and boxes stored in the fixture; the kernel's launch
-   count is read around the run (and the mask-only mode must not run);
-   then warm 16-page runs are timed;
-4. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+   count is read around the run (and the mask-only mode must not run; the
+   det forward and each cls + rec bucket run as captured CUDA graphs, and
+   the count includes the launches their replays make); every graph call
+   of that run is held bit for bit against the eager function on the
+   same inputs (det: packed mask, prob map, image tensor; cls + rec: cls
+   probabilities, flips, CTC indices, keep mask, scores); then warm
+   16-page runs are timed, with no capture allowed inside the timing;
+4. stream: mixed-size pages (bench.py config 5's sizes, made from the
+   fixture pages) in 2 batches of 12, streamed 3 times, against
+   ``run_many`` per batch (same box counts, boxes within 0.5 px, at least
+   99% of the texts equal); the cross-shape pad + concat must run and the
+   timed pass must capture nothing; images/s and rec bucket occupancy;
+5. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
+
+``compile_count()`` (captured graphs) is printed after each phase.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
 without the package beside it, the script exits non-zero and prints no
@@ -66,6 +78,14 @@ LOGIT_THRESH = math.log(0.3 / 0.7)
 TEXT_MATCH_MIN = 0.95
 BOX_TOL_PX = 2.0
 BOX_MAX_PX = 4.0
+# stream against run_many on the same pages: the det chunks have the same
+# keys on both paths, so boxes agree to within STREAM_BOX_PX; cross-batch
+# accumulation changes the rec batch buckets, and cuBLAS may take another
+# kernel for another batch size, so STREAM_TEXT_MIN of the texts must agree
+STREAM_BOX_PX = 0.5
+STREAM_TEXT_MIN = 0.99
+# bench.py config 5: (h, w) of the mixed-size stream, 2 batches of 12
+STREAM_SIZES = [(960, 704), (640, 512), (960, 704), (768, 576)]
 
 
 def say(phase: str, **kw) -> None:
@@ -276,12 +296,14 @@ def kernel_phase() -> dict:
         plain_ms=f"{out['mask_only_plain_ms']:.6f}",
         bound_ms=f"{out['mask_only_bound_ms']:.6f}", bytes=k1_bytes)
     page = main[0]
-    ms1 = device_ms(lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True))
+    k2 = lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True)  # noqa: E731
+    ms1 = device_ms(k2)
+    host1 = host_ms(k2)
     plain1 = cuda_ms(lambda: db_pack.binarize_dilate_pack_rows_batch_plain(
         page[None], LOGIT_THRESH, True), 500)
     bytes1 = k1_bytes // b
     say("kernel", fn="binarize_dilate_pack_rows", timed_shape=tuple(page.shape),
-        device_ms=f"{ms1:.6f}", plain_ms=f"{plain1:.6f}",
+        device_ms=f"{ms1:.6f}", host_ms=f"{host1:.6f}", plain_ms=f"{plain1:.6f}",
         bound_ms=f"{bytes1 / HBM_BYTES_PER_S * 1e3:.6f}", bytes=bytes1)
     return out
 
@@ -326,6 +348,53 @@ def compare(label: str, got: list, ref_page, ref_boxes, ref_texts):
     return agree, len(ref_texts) + extra, dists
 
 
+def record_graph_calls(dp) -> list:
+    """Wrap the pipeline's two graph caches so that every call leaves a
+    copy of its arguments and of its outputs, taken on the stream right
+    after the call (the outputs are the graph's static tensors)."""
+    calls = []
+    for name, cache in (("det", dp._det_graphs), ("clsrec", dp._clsrec_graphs)):
+        def recording(key, fn, *args, _run=cache.run, _name=name):
+            out = _run(key, fn, *args)
+            calls.append((_name, key, fn, [a.clone() for a in args],
+                          [o.clone() for o in out]))
+            return out
+        cache.run = recording
+    return calls
+
+
+def stop_recording(dp) -> None:
+    for cache in (dp._det_graphs, dp._clsrec_graphs):
+        del cache.run
+
+
+def graphs_against_eager(calls) -> None:
+    """Each recorded graph call against its eager function on the same
+    inputs, bit for bit."""
+    outs = {"det": ("packed_mask", "prob_map", "image_u8"),
+            "clsrec": ("cls_probs", "cls_flip", "ctc_idx", "ctc_keep", "rec_scores")}
+    n = {"det": 0, "clsrec": 0}
+    with torch.inference_mode():
+        for name, key, fn, args, got in calls:
+            ref = fn(*args)
+            torch.cuda.synchronize()
+            for label, g, r in zip(outs[name], got, ref):
+                if g.shape != r.shape or not torch.equal(g, r):
+                    diff = int(g.ne(r).sum()) if g.shape == r.shape else "shape"
+                    fail(f"captured {name} {key} differs from eager in {label}: {diff}")
+            n[name] += 1
+    say("graphs", captured_vs_eager="bit-exact", det_calls=n["det"],
+        clsrec_calls=n["clsrec"])
+    if not n["det"] or not n["clsrec"]:
+        fail("the main path made no det or no cls + rec graph call")
+
+
+def captures(dp) -> tuple[int, float]:
+    """(graphs captured, seconds spent capturing) of a pipeline."""
+    caches = (dp._det_graphs, dp._clsrec_graphs)
+    return dp.compile_count(), sum(c.capture_s for c in caches)
+
+
 def e2e_phase(fx) -> int:
     """Drive the main path, hold it to the fixture, time warm runs; returns
     the db_epilogue launches of the main-path call."""
@@ -349,6 +418,7 @@ def e2e_phase(fx) -> int:
                              order=1, cval=255)
 
     # the main path: counts to 0 just before, read just after
+    calls = record_graph_calls(dp)
     db_pack.db_epilogue.launches = 0
     db_pack.binarize_dilate_pack_rows_batch.launches = 0
     t = time.perf_counter()
@@ -356,13 +426,17 @@ def e2e_phase(fx) -> int:
     torch.cuda.synchronize()
     launches = db_pack.db_epilogue.launches
     mask_only = db_pack.binarize_dilate_pack_rows_batch.launches
+    stop_recording(dp)
+    n_graphs, capture_s = captures(dp)
     say("e2e", main_path_run_many_s=f"{time.perf_counter() - t:.3f}", images=len(res),
         db_epilogue_launches=launches, mask_only_launches=mask_only,
-        formats="gray+yuv420")
+        formats="gray+yuv420", compile_count=n_graphs, capture_s=f"{capture_s:.2f}")
     if launches <= 0:
         fail("the main path never launched the db_epilogue kernel")
     if mask_only:
         fail("the main path launched the mask-only kernel beside db_epilogue")
+    graphs_against_eager(calls)
+    del calls
     gray = _lines(res[:8], range(len(pages)))
     eq_g, n_g, d_g = compare("gray", gray, fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
     eq_t, n_t, d_t = compare("tinted", _lines(res[8:9], [0]), fx["jax_tinted_page"],
@@ -413,6 +487,7 @@ def e2e_phase(fx) -> int:
     torch.cuda.synchronize()
     times = []
     launches16 = 0
+    compiles0 = dp.compile_count()
     for _ in range(5):
         db_pack.db_epilogue.launches = 0
         t = time.perf_counter()
@@ -425,9 +500,95 @@ def e2e_phase(fx) -> int:
              for k, v in dp.last_stats.items()}
     say("e2e", pages=len(batch), images_per_s_median=f"{len(batch) / med:.3f}",
         images_per_s_best=f"{len(batch) / min(times):.3f}",
-        run_s=[round(x, 4) for x in times], db_epilogue_launches_per_run=launches16)
+        images_per_s_worst=f"{len(batch) / max(times):.3f}",
+        run_s=[round(x, 4) for x in times], db_epilogue_launches_per_run=launches16,
+        compile_count=dp.compile_count(), captures_in_timed_region=dp.compile_count() - compiles0)
     print("[e2e] last_stats " + json.dumps(stats), flush=True)
+    if dp.compile_count() != compiles0:
+        fail("the timed 16-page runs captured a new graph")
+    dp.close()
+    dp_rgb.close()
     return launches
+
+
+def _resized(page: np.ndarray, h: int, w: int) -> np.ndarray:
+    t = torch.from_numpy(page).float()[None, None]
+    out = torch.nn.functional.interpolate(t, size=(h, w), mode="bilinear",
+                                          antialias=True, align_corners=False)
+    gray = out[0, 0].round().clamp(0, 255).to(torch.uint8).numpy()
+    return np.repeat(gray[..., None], 3, axis=2)
+
+
+def stream_phase(fx) -> None:
+    """bench.py config 5's protocol on the port: mixed-size pages in 2
+    batches of 12, streamed 3 times, at the mobile checkpoints' full
+    widths; ``stream`` against ``run_many`` per batch."""
+    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
+    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
+    cfg = SessionConfig()
+    cfg.engine.transfer_format = "yuv420"
+    with RettoSession(cfg, preset="mobile", charset=chars, weights=weights,
+                      device="cuda") as session:
+        dp = session.device_pipeline()
+        src = fx["pages"]
+        pages = [_resized(src[(k * len(STREAM_SIZES) + i) % len(src)], h, w)
+                 for k in range(6) for i, (h, w) in enumerate(STREAM_SIZES)]
+        batches = [pages[:12], pages[12:]]
+        stream_in = [b for _ in range(3) for b in batches]
+        t = time.perf_counter()
+        seq = [dp.run_many(b) for b in batches]
+        for _ in dp.stream(stream_in):
+            pass  # the warm pass captures every key the timed pass meets
+        torch.cuda.synchronize()
+        n_graphs, capture_s = captures(dp)
+        say("stream", pages=len(pages), sizes=STREAM_SIZES, warm_s=f"{time.perf_counter() - t:.2f}",
+            compile_count=n_graphs, capture_s=f"{capture_s:.2f}")
+        dp.metrics = type(dp.metrics)()
+        pads0 = dp.pad_concats
+        compiles0 = dp.compile_count()
+        db_pack.db_epilogue.launches = 0
+        t = time.perf_counter()
+        got = list(dp.stream(stream_in))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = db_pack.db_epilogue.launches
+        occ = dp.metrics.summary()["bucket_occupancy"]
+        new_captures = dp.compile_count() - compiles0
+        say("stream", images=sum(len(b) for b in got), images_per_s=f"{sum(len(b) for b in got) / dt:.3f}",
+            rec_batch_occupancy=occ.get("rec_batch"), det_batch_occupancy=occ.get("det_batch"),
+            pad_concats=dp.pad_concats - pads0, db_epilogue_launches=launches,
+            compile_count=dp.compile_count(), captures_in_timed_region=new_captures)
+        print("[stream] bucket_occupancy " + json.dumps(occ), flush=True)
+        if new_captures:
+            fail("the timed stream pass captured a new graph")
+        if dp.pad_concats == pads0:
+            fail("the mixed-size stream never took the cross-shape pad + concat")
+        if launches <= 0:
+            fail("the stream never launched the db_epilogue kernel")
+        lines = equal = 0
+        box_max = 0.0
+        for k, out in enumerate(got):
+            ref = seq[k % 2]
+            for i, (r, g) in enumerate(zip(ref, out)):
+                if len(g.det_result) != len(r.det_result):
+                    fail(f"stream batch {k} page {i}: {len(g.det_result)} boxes, "
+                         f"run_many {len(r.det_result)}")
+                for rb, gb, rt, gt in zip(r.det_result, g.det_result, r.rec_result,
+                                          g.rec_result):
+                    d = float(np.abs(np.asarray(gb.box.pts) - np.asarray(rb.box.pts)).max())
+                    box_max = max(box_max, d)
+                    lines += 1
+                    if gt.text == rt.text:
+                        equal += 1
+                    else:
+                        print(f"  stream batch {k} page {i}: stream {gt.text!r} vs "
+                              f"run_many {rt.text!r}, box {d:.2f} px", flush=True)
+        say("stream", lines=lines, texts_equal_to_run_many=f"{equal}/{lines}",
+            box_max_px=f"{box_max:.2f}")
+        if box_max > STREAM_BOX_PX:
+            fail(f"a stream box lies {box_max:.2f} px from run_many's (> {STREAM_BOX_PX})")
+        if not lines or equal / lines < STREAM_TEXT_MIN:
+            fail(f"only {equal}/{lines} stream texts equal run_many's")
 
 
 def main() -> None:
@@ -440,6 +601,7 @@ def main() -> None:
     k = kernel_phase()
     fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
     launches = e2e_phase(fx)
+    stream_phase(fx)
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",

@@ -25,12 +25,15 @@ from pathlib import Path
 
 from ._build import BUILD_DIR, build_shared
 
-__all__ = ["NVCC_FLAGS", "load", "check_launch", "build_log"]
+__all__ = ["COUNTED", "NVCC_FLAGS", "load", "check_launch", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB: ctypes.CDLL | None = None
+# the wrappers that count their launches in ``.launches`` (each ops module
+# adds its own); ``pipeline.graphs`` adds a graph's launches on every replay
+COUNTED: list = []
 
 
 def _nvcc() -> str:

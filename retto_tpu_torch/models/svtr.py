@@ -70,6 +70,29 @@ class LCNetBackbone(nn.Module):
         return mean_f32(x, 2).squeeze(2).to(x.dtype).transpose(1, 2)
 
 
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the last axis, term by term from +0."""
+    s = x[..., 0] + 0.0
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def _xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """Sum over the last axis in XLA:CPU's order: an axis of ``window`` or
+    more is zero-padded to a multiple of ``window`` (the padding split
+    evenly, the odd element after), each window summed term by term, then
+    the window sums the same way (XLA's tree reduction rewriter, read from
+    the compiled HLO's ``reduce-window``)."""
+    n = x.shape[-1]
+    if n < window:
+        return _sum_in_order(x)
+    padded = -(-n // window) * window
+    left = (padded - n) // 2
+    x = F.pad(x, (left, padded - n - left))
+    return _xla_row_sum(_sum_in_order(x.unflatten(-1, (padded // window, window))), window)
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """Flax ``nn.MultiHeadDotProductAttention`` self-attention: the q/k/v
     ``DenseGeneral`` kernels [D, H, Dh] stacked into ``in_proj_weight``
@@ -103,14 +126,35 @@ class MultiHeadDotProductAttention(nn.Module):
         multiplied by float32(1 / sqrt(Dh) in the compute dtype) and
         rounded; the softmax subtracts the max in the compute dtype, sums
         the float32 exps unrounded and divides the rounded exps by the
-        rounded sum."""
+        rounded sum.
+
+        On the CPU both products and the softmax sum are float32 sums in
+        one fixed order, so the bits do not depend on the intra-op thread
+        count or on the kernel a library picks: the products term by term
+        over Dh and over keys (products of compute-dtype values are exact
+        in float32), the exps in XLA's windows (``_xla_row_sum``).  On the
+        card the products run on cuBLAS."""
         dh = q.shape[-1]
         inv = 1.0 / float(torch.tensor(math.sqrt(dh), dtype=q.dtype))
         q = (q.float() * inv).to(q.dtype)
-        w = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        if q.is_cuda:
+            w = torch.einsum("nqhd,nkhd->nhqk", q, k)
+            e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
+            w = e.to(q.dtype) / e.sum(dim=-1, keepdim=True).to(q.dtype)
+            return torch.einsum("nhqk,nkhd->nqhd", w, v)
+        qh = q.float().permute(0, 2, 1, 3)  # [N, H, Tq, Dh]
+        kh = k.float().permute(0, 2, 1, 3)  # [N, H, Tk, Dh]
+        vh = v.float().permute(0, 2, 1, 3)
+        w = qh[..., :, None, 0] * kh[..., None, :, 0]
+        for d in range(1, dh):
+            w = w + qh[..., :, None, d] * kh[..., None, :, d]
+        w = w.to(q.dtype)
         e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
-        w = e.to(q.dtype) / e.sum(dim=-1, keepdim=True).to(q.dtype)
-        return torch.einsum("nhqk,nkhd->nqhd", w, v)
+        p = (e.to(q.dtype) / _xla_row_sum(e)[..., None].to(q.dtype)).float()
+        out = p[..., :, 0, None] * vh[..., None, 0, :]
+        for j in range(1, vh.shape[2]):
+            out = out + p[..., :, j, None] * vh[..., None, j, :]
+        return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
 class SVTRBlock(nn.Module):

@@ -158,6 +158,7 @@ def binarize_dilate_pack_rows_batch(
 
 
 binarize_dilate_pack_rows_batch.launches = 0
+kernels.COUNTED.extend((db_epilogue, binarize_dilate_pack_rows_batch))
 
 
 def binarize_dilate_pack_rows(

@@ -15,8 +15,6 @@ import torch.nn.functional as F
 
 __all__ = ["binarize_dilate", "binarize_dilate_packed", "unpack_mask"]
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
 
 def binarize_dilate(
     pred: torch.Tensor, thresh: float = 0.3, use_dilation: bool = True
@@ -26,7 +24,9 @@ def binarize_dilate(
     does); the dilation is a max over the up-left 2x2 window with zero
     padding above and to the left."""
     pred2d = pred.reshape(pred.shape[-2:])
-    mask = pred2d > torch.tensor(thresh, dtype=pred2d.dtype, device=pred2d.device)
+    # a Python scalar, rounded on the host: no host-to-device copy, so the
+    # op is safe inside a CUDA-graph capture
+    mask = pred2d > float(torch.tensor(thresh, dtype=pred2d.dtype))
     if use_dilation:
         padded = F.pad(mask.to(torch.float32)[None, None], (1, 0, 1, 0))
         mask = F.max_pool2d(padded, 2, stride=1)[0, 0] > 0
@@ -43,7 +43,7 @@ def binarize_dilate_packed(
     pad = (-w) % 8
     if pad:
         mask = F.pad(mask, (0, pad))
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
+    weights = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=mask.device)
     return (mask.reshape(h, -1, 8).to(torch.int32) * weights).sum(dim=-1).to(torch.uint8)
 
 

@@ -10,30 +10,45 @@ probabilities and CTC indices/keep-masks/scores, and runs the sequential
 tail: contours, min-area rects and unclip (``native`` ``rt_det_chunk``),
 and string assembly.
 
+Scheduling, as in the JAX pipeline: a call is split into det chunks of
+``BucketConfig.det_chunk`` images.  An upload thread stacks each chunk
+into pinned host buffers, copies it to the card without blocking and
+dispatches its det forward; the copies of the det maps to the host are
+enqueued right behind it and completed on one of two fetch threads, while
+the calling thread traces the contours of earlier chunks and dispatches
+cls + rec.  The det forward (per chunk key) and each fused cls + rec
+bucket run as one captured CUDA graph each (``pipeline.graphs``, the
+counterpart of ``_build_jits``; ``compile_count`` counts them).  Crops
+accumulate across chunks and, in ``stream``, across batches, keyed by
+channel count: chunks of other upload shapes meet in a device edge pad +
+concat (``_pad_concat``).
+
 Differences from the JAX pipeline, all of them scheduling:
 
-* the upload and fetch thread pools are a sequential chunk loop: each
-  det chunk is dispatched as soon as it fills (the device runs ahead
-  while the host decodes the next images) and fetched in order;
-* crop accumulators are keyed by the upload tensor's shape, so chunks of
-  different upload shapes dispatch separately instead of meeting in the
-  device pad+concat of ``_pad_concat`` (device_pipeline.py:303-316);
-* ``stream``/``run_stream`` and the per-stage callback are not ported
-  yet.
+* every dispatch (det, cls + rec, the crop concat) and every capture runs
+  under one lock on the device's current stream, so the upload thread
+  and the calling thread take turns where XLA dispatches from both at
+  once; the uploads ride on that stream too, not on a stream of their own;
+* ``DevicePipeline(mesh=)`` (data parallelism over several cards) is not
+  ported.
 
 Precision (stated here because a device changes it): contractions run in
 the det model's compute dtype (bf16 for the shipped checkpoints); the BGR
 normalize, YUV->RGB and the warp tails run in float32, and TF32 is off for
 float32 matmuls and convolutions on CUDA, except inside the models' convs
 that feed a BatchNorm (float32 sums of bf16 values, which TF32 computes
-exactly; ``models.common``).
+exactly; ``models.common``).  The models flip cuDNN's process-wide TF32
+flag around those convs, which is safe because model code runs only under
+the dispatch lock.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -60,8 +75,10 @@ from ..results import (
     OcrResult,
     RecResult,
     RecText,
+    StageResult,
 )
 from ..utils.metrics import PipelineMetrics
+from .graphs import GraphCache
 from .stages import _bucket_up, _next_bucket, det_input_dims
 
 __all__ = ["DevicePipeline"]
@@ -135,6 +152,7 @@ class _CropTask:
     crop_w: int
     cls_label: Any = None
     im: Any = None  # owning _Img
+    sid: int = 0  # owning _prepare state id (disambiguates img_i/box_i)
 
 
 @dataclass
@@ -156,11 +174,9 @@ class _Img:
 class _Chunk:
     key: tuple  # (upload Hp, Wp, det dh, dw, plane format)
     idxs: list[int]
-    packed: Any = None  # device det outputs, fetched by _finish_det
-    prob_small: Any = None
+    upload_fut: Any = None  # -> (fetch future, rgb, valids_src, bytes_up)
     rgb: Any = None
     valids_src: Any = None
-    bytes_up: int = 0
 
 
 def _score_candidates(prob_small: np.ndarray, quads: np.ndarray) -> np.ndarray:
@@ -200,10 +216,50 @@ def _score_candidates(prob_small: np.ndarray, quads: np.ndarray) -> np.ndarray:
     return (val.mean(axis=(1, 2)) / 255.0).astype(np.float32)
 
 
+class _Staging:
+    """Pinned host buffers for the uploads, by shape and dtype.  A buffer is
+    handed out again only after the event recorded behind its last copy
+    has completed, so a non-blocking copy never reads a buffer that the
+    host is refilling."""
+
+    def __init__(self) -> None:
+        self._slots: dict[tuple, list[list]] = {}
+
+    def put(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        arr = np.ascontiguousarray(arr)
+        slots = self._slots.setdefault((arr.shape, arr.dtype.str), [])
+        slot = next((s for s in slots if s[1].query()), None)
+        if slot is None:
+            slot = [torch.from_numpy(np.empty_like(arr)).pin_memory(), None]
+            slots.append(slot)
+        slot[0].numpy()[...] = arr
+        out = slot[0].to(device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+
+def _pad_concat(th: int, tw: int, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Edge-pad each [B, H, W, C] tensor to [B, th, tw, C] and concatenate
+    (device_pipeline.py:303-316): chunks of different upload shapes share
+    one crop accumulator.  Edge mode, so no synthetic content enters the
+    warps' reach; the valid extents ride along unchanged."""
+    outs = []
+    for x in xs:
+        h, w = x.shape[1], x.shape[2]
+        if h != th or w != tw:
+            rows = torch.clamp(torch.arange(th, device=x.device), max=h - 1)
+            cols = torch.clamp(torch.arange(tw, device=x.device), max=w - 1)
+            x = x.index_select(1, rows).index_select(2, cols)
+        outs.append(x)
+    return torch.cat(outs)
+
+
 class DevicePipeline:
-    """Fused det -> cls -> rec over ``run_many``/``run``.  The models are
-    ``nn.Module``s already on ``device`` in eval mode (``RettoSession``
-    builds them)."""
+    """Fused det -> cls -> rec over ``run_many``/``run``/``run_stream``/
+    ``stream``.  The models are ``nn.Module``s already on ``device`` in eval
+    mode (``RettoSession`` builds them).  ``close()`` (or the context
+    manager) shuts the host threads down."""
 
     def __init__(
         self,
@@ -236,8 +292,25 @@ class DevicePipeline:
         self._cls_label = torch.tensor([int(v) for v in config.cls.label],
                                        dtype=torch.int32, device=self.device)
         self._cls_perm = (
-            rot180_label_perm(config.cls.label) if config.cls.symmetrize else None
+            torch.tensor(rot180_label_perm(config.cls.label), device=self.device)
+            if config.cls.symmetrize else None
         )
+        # on the device once: a host-to-device copy cannot run inside a
+        # CUDA-graph capture
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._det_norm = tuple(torch.tensor(v, **f32) for v in (
+            config.det.mean, config.det.std, config.det.scale))
+        # every model dispatch and capture holds the lock (see the module
+        # docstring); the upload thread streams chunks in call order, the
+        # fetch threads wait for the det maps' copies to the host
+        self._lock = threading.RLock()
+        self._det_graphs = GraphCache(self.device)
+        self._clsrec_graphs = GraphCache(self.device)
+        self._staging = _Staging() if self.device.type == "cuda" else None
+        self._upload_pool = ThreadPoolExecutor(max_workers=1)
+        self._fetch_pool = ThreadPoolExecutor(max_workers=2)
+        self._sid = 0  # monotone _prepare state counter (stream keys)
+        self.pad_concats = 0  # accumulator flushes that padded mixed shapes
 
     # ------------------------------------------------------------------ #
     def _det_fwd(self, planes, valid_src, valid_det, dh: int, dw: int, fmt: str):
@@ -289,10 +362,7 @@ class DevicePipeline:
         # x*scale - mean into a fused multiply-add (one rounding); the
         # product of f32 operands is exact in f64, so computing that step
         # in f64 and rounding to f32 reproduces it on any device.
-        f32 = dict(dtype=torch.float32, device=x.device)
-        mean = torch.tensor(det_cfg.mean, **f32)
-        std = torch.tensor(det_cfg.std, **f32)
-        scale = torch.tensor(det_cfg.scale, **f32)
+        mean, std, scale = self._det_norm
         x = (x.to(torch.float64) * scale.double() - mean.double()).to(torch.float32)
         x = (x / std).to(det_dtype)
         s = self._det_stride
@@ -411,8 +481,7 @@ class DevicePipeline:
             if self._cls_perm is not None:
                 # orientation-symmetrized score (ClsConfig.symmetrize)
                 probs2 = self._cls_model(to3(norm_nchw(warp_cls_flip(), cls_widths)))
-                perm = torch.tensor(self._cls_perm, device=probs.device)
-                probs = 0.5 * (probs + probs2[:, perm])
+                probs = 0.5 * (probs + probs2[:, self._cls_perm])
             idx = torch.argmax(probs, dim=-1)
             score = torch.amax(probs, dim=-1)
             flip = (self._cls_label[idx] == 180) & (score >= cfg.cls.thresh)
@@ -448,17 +517,76 @@ class DevicePipeline:
             raise res
         return res
 
+    def close(self) -> None:
+        """Shut down the host thread pools.  Idempotent; after close() the
+        pipeline cannot run (device_pipeline.py:688-693)."""
+        self._upload_pool.shutdown(wait=True)
+        self._fetch_pool.shutdown(wait=True)
+
+    def __enter__(self) -> "DevicePipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def compile_count(self) -> int:
+        """Captured graphs (on a CPU device: static-buffer entries) over the
+        det forward and the cls + rec buckets; JAX's count of jit-cache
+        entries (device_pipeline.py:1005-1018).  A timed region that adds
+        to it captured inside the timing."""
+        return len(self._det_graphs) + len(self._clsrec_graphs)
+
     def run_many(
-        self, inputs: Sequence[bytes | np.ndarray]
+        self,
+        inputs: Sequence[bytes | np.ndarray],
+        stage_callback=None,
     ) -> list[OcrResult | RettoError]:
         """Fused batch run.  A per-image decode failure fills that slot
-        with the error object; the rest of the batch proceeds."""
-        with torch.inference_mode():
-            state = self._prepare(inputs)
-            acc: dict[tuple, dict] = {}
-            handles: list[tuple[list[tuple], Any]] = []
+        with the error object; the rest of the batch proceeds.
+
+        ``stage_callback(i, StageResult)`` receives per-image stage events
+        as they materialize (det when its chunk's postprocess lands, cls
+        and rec at assembly), in det -> cls -> rec order per image
+        (device_pipeline.py:843-857)."""
+        return self._finish(self._prepare(inputs), stage_callback)
+
+    def run_stream(self, data: bytes | np.ndarray, callback) -> OcrResult:
+        """Single-image stage streaming over the fused path."""
+        res = self.run_many([data], lambda _i, ev: callback(ev))[0]
+        if isinstance(res, RettoError):
+            raise res
+        return res
+
+    def stream(self, batches):
+        """Sustained streaming (device_pipeline.py:866-899): a generator over
+        batches of inputs, pipelined two deep.  Batch i+1's decode and
+        uploads run on a prep thread while batch i's postprocess tail
+        completes, and batch i's results are yielded only after batch i+1's
+        det phase, so i's underfull rec buckets absorb i+1's first crops.
+        Results arrive in order, one batch behind the det work."""
+        prep_pool = ThreadPoolExecutor(max_workers=1)
+        acc: dict[tuple, dict] = {}
+        handles: list[tuple[list[tuple], Any]] = []
+        texts: dict[tuple, RecText] = {}
+        try:
+            it = iter(batches)
+            try:
+                state = self._prepare(next(it))
+            except StopIteration:
+                return
+            prev = None
+            for nxt in it:
+                fut = prep_pool.submit(self._prepare, nxt)
+                self._finish_det(state, acc, handles)
+                if prev is not None:
+                    yield self._assemble(prev, acc, handles, texts)
+                prev, state = state, fut.result()
             self._finish_det(state, acc, handles)
-            return self._assemble(state, acc, handles)
+            if prev is not None:
+                yield self._assemble(prev, acc, handles, texts)
+            yield self._assemble(state, acc, handles, texts)
+        finally:
+            prep_pool.shutdown(wait=False)
 
     # ------------------------------------------------------------------ #
     def _decode_one(self, data: bytes | np.ndarray) -> tuple[_Img, tuple[np.ndarray, ...]]:
@@ -529,13 +657,41 @@ class DevicePipeline:
         return im, planes
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=False)
+        """Host array -> device tensor.  On CUDA through a pinned staging
+        buffer, without blocking the host; the caller holds the lock."""
+        if self._staging is None:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return self._staging.put(arr, self.device)
 
+    def _to_host(self, tensors: Sequence[torch.Tensor]) -> tuple[list, Any]:
+        """Enqueue copies of ``tensors`` to the host right behind the work
+        that wrote them (pinned buffers, an event behind the copies): the
+        graphs' static outputs are overwritten by the key's next replay.
+        ``_host`` completes them."""
+        if self.device.type != "cuda":
+            return [t.clone() for t in tensors], None
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(hosts, tensors):
+            h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return hosts, ev
+
+    @staticmethod
+    def _host(pending: tuple[list, Any]) -> list[np.ndarray]:
+        hosts, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return [h.numpy() for h in hosts]
+
+    @torch.inference_mode()
     def _upload_and_det(self, chunk: _Chunk, imgs: list[_Img],
-                        pixels: list[tuple[np.ndarray, ...]], nb: int) -> None:
-        """Stack the pre-padded planes, upload, dispatch the det forward.
-        The device outputs stay on the chunk until ``_finish_det`` fetches
-        them (device_pipeline.py:791-840)."""
+                        pixels: list[tuple[np.ndarray, ...]], nb: int):
+        """Runs on the upload thread: stack the pre-padded planes, upload,
+        dispatch the det forward, enqueue the det maps' copies to the host
+        and hand their completion to a fetch thread
+        (device_pipeline.py:791-840).  Counters are returned, never added
+        into the shared stats dict from this thread."""
         hp, wp, dh, dw, fmt = chunk.key
         planes_np = []
         for p in range(len(pixels[0])):
@@ -544,30 +700,39 @@ class DevicePipeline:
             for k, px in enumerate(pixels):
                 buf[k] = px[p]
             planes_np.append(buf)
-        planes = tuple(self._put(b) for b in planes_np)
         valids_src = np.ones((nb, 2), np.int32)
         valids_det = np.ones((nb, 2), np.int32)
         for k, im in enumerate(imgs):
             valids_src[k] = (im.ah, im.aw)
             valids_det[k] = (im.rh, im.rw)
-        vs = self._put(valids_src)
-        vd = self._put(valids_det)
-        chunk.bytes_up = sum(int(b.nbytes) for b in planes_np)
-        chunk.packed, chunk.prob_small, chunk.rgb = self._det_fwd(
-            planes, vs, vd, dh=dh, dw=dw, fmt=fmt
-        )
-        chunk.valids_src = vs
+        with self._lock:
+            planes = tuple(self._put(b) for b in planes_np)
+            vs = self._put(valids_src)
+            vd = self._put(valids_det)
+            key = (tuple(tuple(p.shape) for p in planes), dh, dw, fmt)
+            packed, prob_small, rgb = self._det_graphs.run(
+                key, lambda *t: self._det_fwd(t[:-2], t[-2], t[-1], dh, dw, fmt),
+                *planes, vs, vd)
+            # the graph's outputs belong to the next chunk of this key: the
+            # image tensor waits in the crop accumulator, so it is cloned
+            rgb = rgb.clone()
+            pending = self._to_host((packed, prob_small))
+        fetch_fut = self._fetch_pool.submit(self._host, pending)
+        return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np)
 
     def _prepare(self, inputs: Sequence[bytes | np.ndarray]) -> dict:
-        """Decode every input and dispatch each (upload shape, det bucket,
-        format) chunk's det forward the moment it fills
+        """Decode every input and hand each (upload shape, det bucket,
+        format) chunk to the upload thread the moment it fills
         (device_pipeline.py:901-970)."""
         cfg = self.cfg
+        sid = self._sid
+        self._sid += 1
         stats = {
             "images": len(inputs), "crops": 0, "chunks": 0,
             "bytes_up": 0, "bytes_down": 0, "dispatches": 0,
             "t_decode": 0.0, "t_mask_fetch": 0.0, "t_contours": 0.0,
             "t_score": 0.0, "t_clsrec_fetch": 0.0, "t_total": 0.0,
+            "t_upload_wait": 0.0,
         }
         t0 = time.perf_counter()
         bk = cfg.buckets
@@ -583,7 +748,9 @@ class DevicePipeline:
             nb = _next_bucket(len(idxs), bk.det_batch_buckets)
             self.metrics.record_batch("det_batch", len(idxs), nb)
             stats["dispatches"] += 1
-            self._upload_and_det(ch, [imgs[i] for i in idxs], [pixels[i] for i in idxs], nb)
+            ch.upload_fut = self._upload_pool.submit(
+                self._upload_and_det, ch, [imgs[i] for i in idxs],
+                [pixels[i] for i in idxs], nb)
             chunks.append(ch)
 
         errors: dict[int, RettoError] = {}
@@ -612,34 +779,54 @@ class DevicePipeline:
         stats["chunks"] = len(chunks)
         stats["t_decode"] = time.perf_counter() - t0
         return {"imgs": imgs, "chunks": chunks, "stats": stats, "t0": t0,
-                "errors": errors}
+                "errors": errors, "sid": sid}
+
+    def _finish(self, state: dict, stage_callback=None) -> list[OcrResult | RettoError]:
+        """``run_many``'s composition of the two halves that ``stream``
+        drives itself (device_pipeline.py:972-980)."""
+        acc: dict[tuple, dict] = {}
+        handles: list[tuple[list[tuple], Any]] = []
+        self._finish_det(state, acc, handles, stage_callback)
+        return self._assemble(state, acc, handles, {}, stage_callback)
 
     def _flush_acc(self, acc: dict, key: tuple, handles: list) -> None:
         a = acc.pop(key, None)
         if not a or not a["crops"]:
             return
-        if len(a["chunks"]) == 1:
-            rgb, vs = a["chunks"][0]
-        else:
-            rgb = torch.cat([c[0] for c in a["chunks"]])
-            vs = torch.cat([c[1] for c in a["chunks"]])
-        handles.extend(self._dispatch_clsrec(rgb, vs, a["crops"], a["stats"]))
+        with self._lock:
+            if len(a["chunks"]) == 1:
+                rgb, vs = a["chunks"][0]
+            else:
+                hs = {int(c[0].shape[1]) for c in a["chunks"]}
+                ws = {int(c[0].shape[2]) for c in a["chunks"]}
+                if len(hs) == 1 and len(ws) == 1:
+                    rgb = torch.cat([c[0] for c in a["chunks"]])
+                else:
+                    rgb = _pad_concat(max(hs), max(ws), [c[0] for c in a["chunks"]])
+                    self.pad_concats += 1
+                vs = torch.cat([c[1] for c in a["chunks"]])
+            handles.extend(self._dispatch_clsrec(rgb, vs, a["crops"], a["stats"]))
 
-    def _finish_det(self, state: dict, acc: dict, handles: list) -> None:
-        """Per chunk: fetch (mask, pooled prob), contours + scoring +
-        finalize on the host in one C++ call, crop tasks; crops accumulate
-        across chunks of the same upload tensor shape and dispatch in
-        buckets of up to 64 (device_pipeline.py:1020-1152)."""
+    @torch.inference_mode()
+    def _finish_det(self, state: dict, acc: dict, handles: list,
+                    stage_callback=None) -> None:
+        """Per chunk: wait for its upload and its det maps, contours +
+        scoring + finalize on the host in one C++ call, crop tasks.  Crops
+        accumulate by channel count across chunks (and, in ``stream``,
+        across batches: ``acc`` and ``handles`` are the caller's) and
+        dispatch in buckets of up to 64 (device_pipeline.py:1020-1152)."""
         cfg = self.cfg
         imgs: list[_Img] = state["imgs"]
         stats = state["stats"]
+        sid = state["sid"]
         s = self._det_stride
         for ch in state["chunks"]:
-            stats["bytes_up"] += ch.bytes_up
             t = time.perf_counter()
-            packed_np = ch.packed.cpu().numpy()
-            prob_np = ch.prob_small.cpu().numpy()
-            ch.packed = ch.prob_small = None
+            fetch_fut, ch.rgb, ch.valids_src, bytes_up = ch.upload_fut.result()
+            stats["t_upload_wait"] += time.perf_counter() - t
+            stats["bytes_up"] += bytes_up
+            t = time.perf_counter()
+            packed_np, prob_np = fetch_fut.result()
             stats["t_mask_fetch"] += time.perf_counter() - t
             stats["bytes_down"] += int(packed_np.nbytes) + int(prob_np.nbytes)
 
@@ -695,14 +882,23 @@ class DevicePipeline:
                         # (image_helper.rs:245-247)
                         quad = quad[[1, 2, 3, 0]]
                         h_crop, w_crop = w_crop, h_crop
-                    im.crops.append(_CropTask(i, j, quad, h_crop, w_crop, im=im))
+                    im.crops.append(_CropTask(i, j, quad, h_crop, w_crop, im=im, sid=sid))
                 stats["crops"] += len(im.boxes)
             stats["t_score"] += time.perf_counter() - t
+            if stage_callback is not None:
+                for i in ch.idxs:
+                    im = imgs[i]
+                    b_ori = scale_and_clip(im.boxes, im.aw, im.ah, im.ori_w, im.ori_h)
+                    stage_callback(i, StageResult(stage="det", result=DetResult(
+                        [DetBox(PointBox(b), float(sc)) for b, sc in zip(b_ori, im.scores)])))
             chunk_crops = [c for i in ch.idxs for c in imgs[i].crops]
             if chunk_crops:
-                key = tuple(ch.rgb.shape[1:])
+                # keyed by channel count only: chunks of other upload shapes
+                # meet in the device pad + concat of _flush_acc; gray (1
+                # channel) and color (3) cannot concat
+                key = (int(ch.rgb.shape[-1]),)
                 a = acc.setdefault(key, {"chunks": [], "crops": [], "rows": 0})
-                a["stats"] = stats
+                a["stats"] = stats  # dispatches bill the flushing batch
                 base = a["rows"]
                 a["chunks"].append((ch.rgb, ch.valids_src))
                 a["rows"] += int(ch.rgb.shape[0])
@@ -711,22 +907,25 @@ class DevicePipeline:
                     self._flush_acc(acc, key, handles)
 
     def _fetch_texts(self, handles: list, stats: dict, texts: dict) -> None:
-        """Fetch cls+rec outputs of every handle and decode texts into
-        ``texts`` keyed (img_i, box_i) (device_pipeline.py:1154-1226)."""
+        """Complete the host copies of every handle's cls + rec outputs and
+        decode texts into ``texts`` keyed (sid, img_i, box_i): handles may
+        hold crops of several stream batches (device_pipeline.py:1154-1226)."""
         cfg = self.cfg
         t = time.perf_counter()
-        for entries, handle in handles:
-            probs, flip, idxs, keep, score = (x.cpu().numpy() for x in handle)
+        taken = list(handles)
+        handles.clear()
+        for entries, pending in taken:
+            probs, flip, idxs, keep, score = self._host(pending)
             n = len(entries)
             probs, idxs, keep, score = probs[:n], idxs[:n], keep[:n], score[:n]
             stats["bytes_down"] += (
                 probs.nbytes + flip.nbytes + idxs.nbytes + keep.nbytes + score.nbytes
             )
             pred = probs.argmax(axis=1) if n else np.zeros((0,), np.int64)
-            by_crop: dict[tuple[int, int], list[tuple[int, tuple]]] = {}
+            by_crop: dict[tuple[int, int, int], list[tuple[int, tuple]]] = {}
             for r, e in enumerate(entries):
                 c = e[0]
-                by_crop.setdefault((c.img_i, c.box_i), []).append((r, e))
+                by_crop.setdefault((c.sid, c.img_i, c.box_i), []).append((r, e))
             for key, seg_rows in by_crop.items():
                 seg_rows.sort(key=lambda re: re[1][1])  # by seg index
                 r0, (c, _s, k, _x0, natural, _w) = seg_rows[0]
@@ -766,19 +965,22 @@ class DevicePipeline:
                     if tot else 0.0
                 )
                 texts[key] = RecText(text=text, score=float(sc))
-        handles.clear()
         stats["t_clsrec_fetch"] += time.perf_counter() - t
 
-    def _assemble(self, state: dict, acc: dict, handles: list
-                  ) -> list[OcrResult | RettoError]:
-        """Flush the remaining accumulators, fetch every handle, build the
-        results (device_pipeline.py:1228-1285)."""
+
+    @torch.inference_mode()
+    def _assemble(self, state: dict, acc: dict, handles: list, texts: dict,
+                  stage_callback=None) -> list[OcrResult | RettoError]:
+        """Flush the accumulators that still hold this state's crops (in
+        ``stream`` they may also hold newer batches' crops: dispatching them
+        together fills the buckets), fetch every handle, build the results
+        (device_pipeline.py:1228-1285)."""
         cfg = self.cfg
         imgs: list[_Img] = state["imgs"]
         stats = state["stats"]
-        for key in list(acc):
+        sid = state["sid"]
+        for key in [k for k, a in acc.items() if any(c.sid <= sid for c, _ in a["crops"])]:
             self._flush_acc(acc, key, handles)
-        texts: dict[tuple[int, int], RecText] = {}
         if handles:
             self._fetch_texts(handles, stats, texts)
         errors: dict[int, RettoError] = state["errors"]
@@ -794,7 +996,10 @@ class DevicePipeline:
             cls_res = ClsResult(
                 [c.cls_label or ClsLabel() for c in im.crops] if cfg.use_cls else []
             )
-            rec_res = RecResult([texts.pop((i, c.box_i), RecText()) for c in im.crops])
+            rec_res = RecResult([texts.pop((sid, i, c.box_i), RecText()) for c in im.crops])
+            if stage_callback is not None:
+                stage_callback(i, StageResult(stage="cls", result=cls_res))
+                stage_callback(i, StageResult(stage="rec", result=rec_res))
             out.append(OcrResult(det_res, cls_res, rec_res))
         stats["t_total"] = time.perf_counter() - state["t0"]
         self.last_stats = stats
@@ -838,8 +1043,10 @@ class DevicePipeline:
         kind).  Lines wider than the largest bucket split into k uniformly
         spaced overlapping segments of the max width; the flipped reading
         of segment s samples the mirrored segment
-        (device_pipeline.py:1317-1478).  Returns (entries, device outputs)
-        handles; entries are (crop, seg, k, x0, natural, rec_width)."""
+        (device_pipeline.py:1317-1478).  Each bucket runs as one captured
+        graph, keyed (image tensor shape, batch bucket, width, use_cls, warp
+        kind).  Returns (entries, pending host copies) handles; entries are
+        (crop, seg, k, x0, natural, rec_width).  The caller holds the lock."""
         cfg = self.cfg
         bk = cfg.buckets
         _, ch_h, cw = cfg.cls.image_shape
@@ -915,7 +1122,11 @@ class DevicePipeline:
                     )
                     stats["dispatches"] += 1
                     cls_geo, cls_flips, rec_geo, rec_flips = (self._put(g) for g in geos)
-                    handle = self._clsrec_fwd(
+                    use_cls = bool(cfg.use_cls)
+                    out = self._clsrec_graphs.run(
+                        (tuple(rgb.shape), nb, bw, use_cls, aligned),
+                        lambda *t, bw=bw, use_cls=use_cls: self._clsrec_fwd(
+                            *t, out_w=bw, use_cls=use_cls),
                         rgb,
                         self._put(np.asarray(rows, np.int64)),
                         cls_geo, cls_flips,
@@ -923,8 +1134,7 @@ class DevicePipeline:
                         rec_geo, rec_flips,
                         self._put(np.asarray(rec_widths, np.int32)),
                         valids_src,
-                        out_w=bw,
-                        use_cls=bool(cfg.use_cls),
                     )
-                    handles.append((items, handle))
+                    # the graph's outputs belong to the next replay of this key
+                    handles.append((items, self._to_host(out)))
         return handles

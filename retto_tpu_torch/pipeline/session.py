@@ -10,6 +10,7 @@ The staged COMPAT ``run``/``run_stream`` path is not ported yet.
     session = RettoSession(SessionConfig(), charset=chars, weights={
         "det": "trained_weights/det.npz", "cls": ..., "rec": ...})
     results = session.device_pipeline().run_many(pages)
+    session.close()  # or: with RettoSession(...) as session: ...
 """
 
 from __future__ import annotations
@@ -64,6 +65,19 @@ class RettoSession:
                 self.config, self.chars, device=self.device, metrics=self.metrics,
             )
         return self._device_pipeline
+
+    def close(self) -> None:
+        """Release the fused pipeline's host threads (session.py:107-113).
+        Idempotent; safe when no device pipeline was ever built."""
+        if self._device_pipeline is not None:
+            self._device_pipeline.close()
+            self._device_pipeline = None
+
+    def __enter__(self) -> "RettoSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _resolve_charset(self, charset) -> CharacterDict:
         if isinstance(charset, CharacterDict):

@@ -160,3 +160,29 @@ def test_space_depth_channel_order(block):
     back = np.asarray(j_d2s(jnp.asarray(ref.transpose(0, 2, 3, 1)), block))
     np.testing.assert_array_equal(depth_to_space(got, block).numpy(),
                                   back.transpose(0, 3, 1, 2))
+
+
+def test_rec_mixer_from_flax_features_matches_flax():
+    """The rec model's bf16 difference (TOL above) comes from the LCNet
+    backbone's conv sums: fed the Flax backbone's own features, the port's
+    SVTR mixer and CTC head give SVTRBlock_0 bit-exact and probabilities
+    within 1e-6 of Flax's maximum (measured 3.6e-7; tools/cpu_parity_probe.py)."""
+    jm, tree, tm = _models("rec", "bfloat16")
+    x = np.random.default_rng(0).uniform(-1, 1, (2, 3, 48, 320)).astype(np.float32)
+    ref, state = jax.jit(lambda p, v: jm.apply(p, v, capture_intermediates=True))(
+        tree, jnp.asarray(x))
+    ref, inter = np.asarray(ref), state["intermediates"]
+
+    def flax_out(name):
+        return np.array(inter[name]["__call__"][0].astype(jnp.float32))
+
+    with torch.no_grad():
+        feats = torch.from_numpy(flax_out("LCNetBackbone_0")).to(torch.bfloat16)
+        seq32 = tm.Dense_0(feats, f32_out=True)
+        seq, seq32 = tm.SVTRBlock_0(seq32.to(feats.dtype), seq32)
+        np.testing.assert_array_equal(seq.float().numpy(), flax_out("SVTRBlock_0"))
+        for name in tm.mixer[1:]:
+            seq, seq32 = getattr(tm, name)(seq, seq32)
+        logits = tm.Dense_1(tm.LayerNorm_0(seq32).to(seq.dtype), f32_out=True)
+        got = torch.softmax(logits, dim=-1).numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()

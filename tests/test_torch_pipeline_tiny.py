@@ -219,7 +219,7 @@ def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
     def stats():
         return {"dispatches": 0, "bytes_down": 0, "t_clsrec_fetch": 0.0}
 
-    jt, tt = tasks(jmod, sid=0), tasks(tmod)
+    jt, tt = tasks(jmod, sid=0), tasks(tmod, sid=0)
     jh = jdp._dispatch_clsrec(jnp.asarray(imgs), jnp.asarray(valid), jt, stats())
     jtexts, ttexts = {}, {}
     jdp._fetch_texts(jh, stats(), jtexts)
@@ -229,7 +229,7 @@ def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
         assert max(e[2] for items, _ in th for e in items) == 4  # the wide line split
         tdp._fetch_texts(th, stats(), ttexts)
     for j in range(len(quads)):
-        r, g = jtexts[(0, jt[j][0].img_i, j)], ttexts[(tt[j][0].img_i, j)]
+        r, g = jtexts[(0, jt[j][0].img_i, j)], ttexts[(0, tt[j][0].img_i, j)]
         assert g.text == r.text and abs(g.score - r.score) <= 1e-5
         tc, jc = tt[j][0].cls_label, jt[j][0].cls_label
         assert tc.label == jc.label and abs(tc.score - jc.score) <= 1e-5

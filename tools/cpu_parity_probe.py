@@ -1,0 +1,242 @@
+"""Where the port's bf16 models still differ from XLA:CPU's Flax models, and
+why: the measurements behind ROADMAP Queue 3 items 2 and 3.
+
+    JAX_PLATFORMS=cpu python tools/cpu_parity_probe.py [rec] [det]
+
+Runs on the CPU and compares the JAX package with the port (a diagnostic
+beside the tests, which is why it imports both).  Prints one JSON line per
+part:
+
+* ``rec``: the mobile rec model on seeded noise (as
+  tests/test_torch_models.py): the largest difference relative to the
+  largest probability; the share of the LCNet backbone's bf16 features that
+  differ in bits; the port's mixer and head fed Flax's own features
+  (SVTR blocks' differing outputs, the output's relative difference), with
+  the LayerNorm as the port computes it and with XLA's windowed sums
+  (``models.svtr._xla_row_sum``) in flax's fast-variance formula; a
+  standalone 120-wide LayerNorm's differing outputs either way; and the
+  share of float32 inputs where XLA's ``rsqrt`` and ``torch.rsqrt`` differ
+  from the correctly rounded value.
+* ``det``: each ConvBNAct of the mobile det, fed the Flax model's own
+  input to that layer on fixture page 0, against the jitted Flax layer
+  (differing outputs, largest difference); for the first layer that
+  differs, the same with its conv computed as an explicit float32 im2col
+  sum in (kh, kw, cin) order, and with the BatchNorm as a fused
+  multiply-add using XLA's ``rsqrt`` for its multiplier.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from retto_tpu.models import build_det as j_det, build_rec as j_rec  # noqa: E402
+from retto_tpu.models.common import ConvBNAct as JConvBNAct  # noqa: E402
+from retto_tpu.weights import load_params_meta as j_load  # noqa: E402
+from retto_tpu_torch.models import build_det, build_rec  # noqa: E402
+from retto_tpu_torch.models.common import ACTIVATIONS, LayerNorm, _same_pads, cast_compute  # noqa: E402
+from retto_tpu_torch.models.svtr import _xla_row_sum  # noqa: E402
+from retto_tpu_torch.weights import load_flax_params, load_params_meta  # noqa: E402
+
+
+def _models(kind: str, j_build, t_build):
+    path = ROOT / "trained_weights" / f"{kind}.npz"
+    tree, meta = j_load(str(path))
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["overrides"].items()}
+    extra = {"num_classes": 96} if kind == "rec" else {}
+    jm = j_build("bare", compute_dtype="bfloat16", **extra, **kw)
+    flat, _ = load_params_meta(str(path))
+    tm = load_flax_params(t_build("bare", compute_dtype="bfloat16", **extra, **kw), flat)
+    return jm, tree, cast_compute(tm, torch.bfloat16).eval()
+
+
+def _xla_layernorm(self, x):
+    """flax's fast-variance LayerNorm with XLA's windowed float32 sums."""
+    x = x.float()
+    inv = 1.0 / x.shape[-1]
+    mean = _xla_row_sum(x) * inv
+    var = torch.clamp(_xla_row_sum(x * x) * inv - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + self.eps)[..., None] * self.weight.float()
+    return (x - mean[..., None]) * mul + self.bias.float()
+
+
+def rec_part() -> dict:
+    jm, tree, tm = _models("rec", j_rec, build_rec)
+    x = np.random.default_rng(0).uniform(-1, 1, (2, 3, 48, 320)).astype(np.float32)
+    ref, state = jax.jit(lambda p, v: jm.apply(p, v, capture_intermediates=True))(
+        tree, jnp.asarray(x))
+    ref = np.asarray(ref)
+    inter = state["intermediates"]
+
+    def flax_out(name):
+        return np.array(inter[name]["__call__"][0].astype(jnp.float32))
+
+    out = {"part": "rec", "input": "seeded uniform noise [2, 3, 48, 320]"}
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+        out["output_rel_diff"] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        feats = tm.LCNetBackbone_0(torch.from_numpy(x)).float().numpy()
+        out["backbone_features_differing_share"] = float(
+            (feats != flax_out("LCNetBackbone_0")).mean())
+        for label, ln_forward in (("port_layernorm", LayerNorm.forward),
+                                  ("xla_windowed_layernorm", _xla_layernorm)):
+            saved = LayerNorm.forward
+            LayerNorm.forward = ln_forward
+            try:
+                ft = torch.from_numpy(flax_out("LCNetBackbone_0")).to(torch.bfloat16)
+                seq32 = tm.Dense_0(ft, f32_out=True)
+                seq = seq32.to(ft.dtype)
+                blocks = {}
+                for name in tm.mixer:
+                    seq, seq32 = getattr(tm, name)(seq, seq32)
+                    blocks[name] = int((seq.float().numpy() != flax_out(name)).sum())
+                logits = tm.Dense_1(tm.LayerNorm_0(seq32).to(seq.dtype), f32_out=True)
+                p = torch.softmax(logits, -1).numpy()
+            finally:
+                LayerNorm.forward = saved
+            out[f"mixer_from_flax_features_{label}"] = {
+                "block_outputs_differing": blocks, "block_size": int(seq.numel()),
+                "output_rel_diff": float(np.abs(p - ref).max() / np.abs(ref).max())}
+    rng = np.random.default_rng(5)
+    xl = rng.normal(size=(3, 50, 120)).astype(np.float32)
+    mod = fnn.LayerNorm(epsilon=1e-6)
+    v = mod.init(jax.random.PRNGKey(0), jnp.asarray(xl))
+    ln_ref = np.asarray(jax.jit(mod.apply)(v, jnp.asarray(xl)))
+    ln = LayerNorm(120)
+    with torch.no_grad():
+        out["standalone_layernorm_120_differing"] = {
+            "port": int((ln(torch.from_numpy(xl)).numpy() != ln_ref).sum()),
+            "xla_windowed": int((_xla_layernorm(ln, torch.from_numpy(xl)).numpy()
+                                 != ln_ref).sum()),
+            "of": int(ln_ref.size)}
+    r = np.random.default_rng(0).uniform(0.01, 10, 100_000).astype(np.float32)
+    exact = (1 / np.sqrt(r.astype(np.float64))).astype(np.float32)
+    out["rsqrt_not_correctly_rounded_share"] = {
+        "xla": float((np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(r))) != exact).mean()),
+        "torch": float((torch.rsqrt(torch.from_numpy(r)).numpy() != exact).mean())}
+    return out
+
+
+def det_part() -> dict:
+    from retto_tpu_torch import RettoSession, SessionConfig
+    from retto_tpu_torch.ops.charset import CharacterDict
+    from retto_tpu_torch.pipeline.stages import _bucket_up
+
+    fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
+    chars = (ROOT / "trained_weights" / "charset.txt").read_text().splitlines()
+    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
+    cfg = SessionConfig()
+    cfg.engine.transfer_format = "yuv420"
+    seen = {}
+    with RettoSession(cfg, charset=CharacterDict(chars), weights=weights,
+                      device="cpu") as session:
+        dp = session.device_pipeline()
+        real = dp._det_model.forward
+
+        def spy(x, **kw):
+            seen["x"] = x.clone()
+            return real(x, **kw)
+
+        dp._det_model.forward = spy
+        im, planes = dp._decode_one(np.repeat(fx["pages"][0][..., None], 3, axis=2))
+        bk = cfg.buckets
+        dh = _bucket_up(im.rh, bk.det_pad_to, bk.det_max_side)
+        dw = _bucket_up(im.rw, bk.det_pad_to, bk.det_max_side)
+        with torch.inference_mode():
+            dp._det_fwd(tuple(torch.from_numpy(p[None]) for p in planes),
+                        torch.from_numpy(np.asarray([[im.ah, im.aw]], np.int32)),
+                        torch.from_numpy(np.asarray([[im.rh, im.rw]], np.int32)),
+                        dh, dw, im.fmt)
+    jm, tree, tm = _models("det", j_det, build_det)
+    records = []
+
+    def intercept(next_fun, args, kwargs, context):
+        y = next_fun(*args, **kwargs)
+        if isinstance(context.module, JConvBNAct) and context.method_name == "__call__":
+            records.append((context.module.path, context.module.clone(parent=None), args[0]))
+        return y
+
+    with fnn.intercept_methods(intercept):
+        jm.apply(tree, jnp.asarray(seen["x"].float().numpy()).astype(jnp.bfloat16),
+                 nhwc=True, raw_logits=True)
+
+    def sub(d, path):
+        for p in path:
+            d = d[p]
+        return d
+
+    out = {"part": "det", "input": "fixture page 0, its det input from the port's _det_fwd",
+           "layers": []}
+    first = None
+    for path, layer, xin in records:
+        variables = {"params": sub(tree["params"], path),
+                     "batch_stats": sub(tree["batch_stats"], path)}
+        ref = np.asarray(jax.jit(layer.apply)(variables, xin).astype(jnp.float32))
+        mod = tm
+        for p in path:
+            mod = getattr(mod, p)
+        xt = torch.from_numpy(np.asarray(xin.astype(jnp.float32))).to(torch.bfloat16)
+        xt = xt.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            got = mod(xt).float().permute(0, 2, 3, 1).numpy()
+        n = int((got != ref).sum())
+        out["layers"].append({"layer": "/".join(path), "input_nhwc": list(xin.shape),
+                              "differing": n, "of": int(ref.size),
+                              "max_diff": float(np.abs(got - ref).max())})
+        if n and first is None:
+            first = (path, mod, xt, ref)
+    if first is not None:
+        path, mod, xt, ref = first
+        conv, bn = mod.Conv_0, mod.BatchNorm_0
+        (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+        x = xt.float()
+        ph, pw = _same_pads(x.shape[2], kh, sh), _same_pads(x.shape[3], kw, sw)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        w = conv.weight.float()
+        oh, ow = (x.shape[2] - kh) // sh + 1, (x.shape[3] - kw) // sw + 1
+        acc = torch.zeros((x.shape[0], w.shape[0], oh, ow))
+        with torch.no_grad():
+            for i in range(kh):
+                for j in range(kw):
+                    patch = x[:, :, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+                    for c in range(x.shape[1]):
+                        acc = acc + patch[:, c:c + 1] * w[None, :, c, i, j, None, None]
+            xla_rsqrt = torch.from_numpy(np.asarray(jax.jit(jax.lax.rsqrt)(
+                jnp.asarray(bn.running_var.float().numpy() + np.float32(bn.eps)))))
+            mul = (xla_rsqrt * bn.weight.float())[:, None, None]
+
+            def finish(y):
+                y = ACTIVATIONS[mod.act](y.to(conv.weight.dtype))
+                return int((y.float().permute(0, 2, 3, 1).numpy() != ref).sum())
+
+            d = acc - bn.running_mean.float()[:, None, None]
+            fma = (d.double() * mul.double() + bn.bias.double()[:, None, None]).float()
+            out["first_differing"] = {
+                "layer": "/".join(path),
+                "im2col_khkwcin_conv": finish(bn(acc)),
+                "im2col_conv_fma_batchnorm_xla_rsqrt": finish(fma),
+                "channel_multipliers_differing_from_torch_rsqrt": int(
+                    (xla_rsqrt != torch.rsqrt(bn.running_var.float() + bn.eps)).sum()),
+                "channels": int(bn.running_var.numel())}
+    return out
+
+
+def main() -> None:
+    parts = sys.argv[1:] or ["rec", "det"]
+    for part in parts:
+        print(json.dumps({"rec": rec_part, "det": det_part}[part]()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

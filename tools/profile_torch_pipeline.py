@@ -9,7 +9,11 @@ page twice) under ``torch.profiler`` and prints one JSON line:
 * ``device_busy_ms``: the union of the CUDA kernel and memcpy intervals in
   that window, and ``device_idle_share`` = 1 - busy / wall;
 * ``kernels``: the top device-time entries of ``key_averages()``;
+* ``device_ms_by_kind``: the call's device time and event count by kind of
+  kernel, from the kernel names (``_KINDS``);
 * ``host_phases``: the pipeline's own ``last_stats`` (seconds);
+* ``compile_count``: the graphs the pipeline captured (null for a tree
+  that dispatches eagerly);
 * ``det_epilogue``: the ``db_epilogue`` kernels in that call, the count of
   the wrapper and of the traced kernels, and their device time;
 * ``det_forward_ms``: the det model's forward alone at the 16-page call's
@@ -58,6 +62,31 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
             total += e - end
             end = e
     return total / 1e3  # profiler times are in us
+
+
+# (kind, name fragments), first match wins; matched case-insensitively
+_KINDS = (
+    ("db_epilogue", ("db_epilogue",)),
+    ("memcpy_memset", ("memcpy", "memset")),
+    ("cudnn_layout", ("nchwtonhwc", "nhwctonchw")),
+    ("conv", ("xmma", "implicit_gemm", "conv")),
+    ("gemm", ("gemm", "nvjet", "cutlass")),
+    ("copy_cast", ("copy",)),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce",)),
+)
+
+
+def _by_kind(events: list) -> dict:
+    """{kind: {"device_ms", "count"}} over the call's device events."""
+    out: dict = {}
+    for e in events:
+        name = e.name.lower()
+        kind = next((k for k, marks in _KINDS if any(m in name for m in marks)), "other")
+        d = out.setdefault(kind, {"device_ms": 0.0, "count": 0})
+        d["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        d["count"] += 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))
 
 
 def _epilogue(events: list) -> tuple[int, float]:
@@ -182,8 +211,12 @@ def main() -> None:
         **alone,
         "kernels": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in rows[:15]],
+        "device_ms_by_kind": _by_kind(dev_events),
         "host_phases": {k: v for k, v in dp.last_stats.items()},
+        "compile_count": dp.compile_count() if hasattr(dp, "compile_count") else None,
     }), flush=True)
+    if hasattr(dp, "close"):
+        dp.close()
 
 
 if __name__ == "__main__":
