@@ -33,7 +33,26 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    ``run_many`` per batch (same box counts, boxes within 0.5 px, at least
    99% of the texts equal); the cross-shape pad + concat must run and the
    timed pass must capture nothing; images/s and rec bucket occupancy;
-5. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+5. staged: ``RettoSession(device="cuda").run`` (``TorchEngine`` and the
+   three stages) in COMPAT and PERFORMANCE mode on the 10 fixture inputs,
+   held to the JAX staged session's lines
+   (``retto_tpu_torch/testdata/smoke_staged.npz``) by the same rule as
+   the fused path; ``run_stream`` (det, cls, rec, equal to ``run``) and
+   ``run_many`` (a corrupt input isolated); ``engine.compiled_shapes()``;
+   images/s (median of 3 warm passes) and ms per image per stage; then one
+   staged pass and one fused ``run_many`` from two threads at once, which
+   must give their single-thread texts;
+6. cli: ``python3 -m retto_tpu_torch.cli ocr`` in subprocesses on the
+   fixture inputs written as PNGs (a standard-library encoder), staged and
+   with ``--device-pipeline``, must read the session's texts; ``info``
+   must name the card;
+7. serve: ``serve.make_server`` on port 0 with a PERFORMANCE session: 8
+   concurrent ``/ocr`` POSTs (texts of ``run_many``, the kernel launched
+   from the batcher thread, latency p50 and max), ``/ocr/stream`` (det,
+   cls, rec), ``/metrics`` (``avg_batch`` > 1), ``/healthz``; then a COMPAT
+   session serves ``/ocr`` through the staged path; ``server_close()`` and
+   ``close()`` must return within ``SERVER_CLOSE_S``;
+8. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
 ``compile_count()`` (captured graphs) is printed after each phase.
@@ -50,6 +69,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -61,11 +81,13 @@ from scipy import ndimage
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from retto_tpu_torch import RettoSession, SessionConfig  # noqa: E402
+from retto_tpu_torch import PipelineMode, RettoError, RettoSession, SessionConfig  # noqa: E402
 from retto_tpu_torch import kernels, native  # noqa: E402
+from retto_tpu_torch._build import BUILD_DIR  # noqa: E402
 from retto_tpu_torch.ops import db_pack  # noqa: E402
 from retto_tpu_torch.ops.charset import CharacterDict  # noqa: E402
 from retto_tpu_torch.pipeline.device_pipeline import _is_aligned  # noqa: E402
+from retto_tpu_torch.serve import make_server  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SHAPE = (4, 512, 384)  # det chunk 4 x stride-2 logits of a 1024x768 bucket
@@ -86,6 +108,8 @@ STREAM_BOX_PX = 0.5
 STREAM_TEXT_MIN = 0.99
 # bench.py config 5: (h, w) of the mixed-size stream, 2 batches of 12
 STREAM_SIZES = [(960, 704), (640, 512), (960, 704), (768, 576)]
+# server_close() and the session's close() must return within this many s
+SERVER_CLOSE_S = 10.0
 
 
 def say(phase: str, **kw) -> None:
@@ -395,27 +419,38 @@ def captures(dp) -> tuple[int, float]:
     return dp.compile_count(), sum(c.capture_s for c in caches)
 
 
-def e2e_phase(fx) -> int:
-    """Drive the main path, hold it to the fixture, time warm runs; returns
-    the db_epilogue launches of the main-path call."""
-    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
-    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
-    t = time.perf_counter()
-    cfg = SessionConfig()
-    cfg.engine.transfer_format = "yuv420"
-    session = RettoSession(cfg, preset="mobile", charset=chars, weights=weights,
-                           device="cuda")
-    dp = session.device_pipeline()
-    say("e2e", session_build_s=f"{time.perf_counter() - t:.2f}")
+def fixture_inputs(fx) -> list[np.ndarray]:
+    """The 10 fixture inputs: gray pages 0-7 as RGB, page 0 tinted (yuv420
+    format), page 2 tinted and rotated (gather warp, cls flip)."""
     pages = [np.repeat(p[..., None], 3, axis=2) for p in fx["pages"]]
     tint = fx["tint"].astype(np.float32)
 
     def tinted_page(i):
         return np.rint(fx["pages"][i][..., None].astype(np.float32) * tint).astype(np.uint8)
 
-    tinted = tinted_page(0)
     rotated = ndimage.rotate(tinted_page(2), float(fx["rotate_deg"]), reshape=False,
                              order=1, cval=255)
+    return pages + [tinted_page(0), rotated]
+
+
+def mobile_session(mode: str = "performance", transfer: str = "yuv420") -> RettoSession:
+    """A session over the shipped mobile checkpoints on the card."""
+    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
+    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
+    cfg = SessionConfig(mode=PipelineMode(mode))
+    cfg.engine.transfer_format = transfer
+    return RettoSession(cfg, preset="mobile", charset=chars, weights=weights, device="cuda")
+
+
+def e2e_phase(fx) -> int:
+    """Drive the main path, hold it to the fixture, time warm runs; returns
+    the db_epilogue launches of the main-path call."""
+    t = time.perf_counter()
+    session = mobile_session()
+    dp = session.device_pipeline()
+    say("e2e", session_build_s=f"{time.perf_counter() - t:.2f}")
+    inputs = fixture_inputs(fx)
+    pages, tinted, rotated = inputs[:8], inputs[8], inputs[9]
 
     # the main path: counts to 0 just before, read just after
     calls = record_graph_calls(dp)
@@ -451,10 +486,7 @@ def e2e_phase(fx) -> int:
     if not flips or not gathered:
         fail("the rotated page took no cls flip or no gather warp")
 
-    cfg_rgb = SessionConfig()
-    cfg_rgb.engine.transfer_format = "rgb"
-    dp_rgb = RettoSession(cfg_rgb, preset="mobile", charset=chars, weights=weights,
-                          device="cuda").device_pipeline()
+    dp_rgb = mobile_session(transfer="rgb").device_pipeline()
     before = db_pack.db_epilogue.launches
     res_rgb = dp_rgb.run_many([pages[1]])
     rgb_launches = db_pack.db_epilogue.launches - before
@@ -523,12 +555,7 @@ def stream_phase(fx) -> None:
     """bench.py config 5's protocol on the port: mixed-size pages in 2
     batches of 12, streamed 3 times, at the mobile checkpoints' full
     widths; ``stream`` against ``run_many`` per batch."""
-    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
-    weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
-    cfg = SessionConfig()
-    cfg.engine.transfer_format = "yuv420"
-    with RettoSession(cfg, preset="mobile", charset=chars, weights=weights,
-                      device="cuda") as session:
+    with mobile_session() as session:
         dp = session.device_pipeline()
         src = fx["pages"]
         pages = [_resized(src[(k * len(STREAM_SIZES) + i) % len(src)], h, w)
@@ -591,6 +618,239 @@ def stream_phase(fx) -> None:
             fail(f"only {equal}/{lines} stream texts equal run_many's")
 
 
+def texts_of(results) -> list[list[str]]:
+    return [[t.text for t in r.rec_result] for r in results]
+
+
+def staged_phase(fx, sessions: dict) -> dict:
+    """The staged ``RettoSession.run`` (``TorchEngine`` + the three stages)
+    in COMPAT and PERFORMANCE mode on the 10 fixture inputs, held to the JAX
+    staged session's lines (``smoke_staged.npz``) by ``compare``'s rule;
+    ``run_stream`` and ``run_many``; warm images/s and the per-stage split;
+    then the staged path and the fused pipeline from two threads at once.
+    Returns the single-thread texts per mode and of the fused pipeline."""
+    ref = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_staged.npz")
+    inputs = fixture_inputs(fx)
+    out: dict = {}
+    for mode in ("compat", "performance"):
+        session = sessions[mode]
+        db_pack.db_epilogue.launches = 0
+        t = time.perf_counter()
+        res = [session.run(x) for x in inputs]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        shapes_first = session.engine.compiled_shapes()
+        agree, total, dists = compare(f"staged-{mode}", _lines(res, range(len(inputs))),
+                                      ref[f"{mode}_page"], ref[f"{mode}_boxes"],
+                                      ref[f"{mode}_texts"])
+        frac = agree / max(total, 1)
+        say("staged", mode=mode, lines_agreeing_with_jax_staged=f"{agree}/{total}",
+            fraction=f"{frac:.4f}", box_max_px=f"{max(dists, default=0.0):.2f}",
+            first_pass_s=f"{first_s:.3f}", compiled_shapes=json.dumps(shapes_first),
+            db_epilogue_launches=db_pack.db_epilogue.launches)
+        if total == 0 or frac < TEXT_MATCH_MIN:
+            fail(f"staged {mode}: only {agree}/{total} lines agree with the JAX session")
+        if max(dists, default=0.0) > BOX_MAX_PX:
+            fail(f"staged {mode}: a box lies {max(dists):.2f} px from the JAX session's")
+        events = []
+        session.run_stream(inputs[9], events.append)
+        if [e.stage for e in events] != ["det", "cls", "rec"]:
+            fail(f"staged {mode}: run_stream gave {[e.stage for e in events]}")
+        if [e.result.to_dict() for e in events] != [
+                res[9].det_result.to_dict(), res[9].cls_result.to_dict(),
+                res[9].rec_result.to_dict()]:
+            fail(f"staged {mode}: run_stream's events differ from run")
+        many = session.run_many([inputs[1], b"not an image", inputs[1]])
+        if not isinstance(many[1], RettoError) or texts_of([many[0], many[2]]) != \
+                texts_of([res[1], res[1]]):
+            fail(f"staged {mode}: run_many did not isolate the corrupt input")
+        times = []
+        stage0 = dict(session.metrics.stage_time)
+        for _ in range(3):
+            t = time.perf_counter()
+            for x in inputs:
+                session.run(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        per_img = {k: round((v - stage0.get(k, 0.0)) / (3 * len(inputs)) * 1e3, 3)
+                   for k, v in session.metrics.stage_time.items()}
+        med = sorted(times)[1]
+        out[mode] = {"images_per_s": len(inputs) / med, "texts": texts_of(res)}
+        say("staged", mode=mode, images=len(inputs),
+            images_per_s_median=f"{len(inputs) / med:.3f}",
+            pass_s=[round(x, 4) for x in times],
+            first_pass_extra_s=f"{first_s - med:.3f}",
+            stage_ms_per_image=json.dumps(per_img),
+            compiled_shapes=json.dumps(session.engine.compiled_shapes()))
+        if session.engine.compiled_shapes() != shapes_first:
+            fail(f"staged {mode}: the warm passes met a new input shape")
+
+    # the session's one dispatch lock: staged and fused from two threads
+    session = sessions["performance"]
+    dp = session.device_pipeline()
+    out["fused"] = texts_of(dp.run_many(inputs))
+    got: dict = {}
+
+    def staged():
+        got["staged"] = texts_of([session.run(x) for x in inputs])
+
+    def fused():
+        got["fused"] = texts_of(dp.run_many(inputs))
+
+    db_pack.db_epilogue.launches = 0
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = [pool.submit(staged), pool.submit(fused)]
+        for f in futs:
+            f.result(timeout=300)
+    torch.cuda.synchronize()
+    same = got["staged"] == out["performance"]["texts"] and got["fused"] == out["fused"]
+    say("staged", two_threads="staged+fused", texts_equal_single_thread=same,
+        db_epilogue_launches=db_pack.db_epilogue.launches)
+    if not same:
+        fail("the staged and fused paths driven together gave other texts than alone")
+    return out
+
+
+def write_png(path: Path, img: np.ndarray) -> None:
+    """A minimal PNG (8-bit gray or RGB, no filter) from the standard library."""
+    import struct
+    import zlib
+
+    gray = img.ndim == 2 or bool((img == img[..., :1]).all())
+    px = img if img.ndim == 2 else (img[..., 0] if gray else img)
+    h, w = px.shape[:2]
+    raw = b"".join(b"\x00" + px[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if gray else 2, 0, 0, 0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                     + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def cli_phase(fx, staged: dict, kind: str, workdir: Path) -> None:
+    """``python3 -m retto_tpu_torch.cli`` in subprocesses: ``ocr`` on the
+    fixture inputs written as PNGs, staged and with ``--device-pipeline``,
+    must read the session's texts; ``info`` must name the card."""
+    pngs = workdir / "pages"
+    pngs.mkdir(parents=True, exist_ok=True)
+    for i, x in enumerate(fixture_inputs(fx)):
+        write_png(pngs / f"p{i:02d}.png", x)
+    for label, extra, want in (("staged", [], staged["performance"]["texts"]),
+                               ("fused", ["--device-pipeline"], staged["fused"])):
+        out = workdir / f"{label}.jsonl"
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "retto_tpu_torch.cli", "ocr", str(pngs), "--weights-dir",
+             str(ROOT / "trained_weights"), "--json-out", str(out), *extra],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], flush=True)
+            fail(f"the CLI ({label}) exited {proc.returncode}")
+        lines = [json.loads(x) for x in out.read_text().splitlines()]
+        texts = [[t["text"] for t in x["texts"]] for x in lines]
+        say("cli", path=label, files=len(lines), s=f"{time.perf_counter() - t:.2f}",
+            texts_equal_session=texts == want, summary=repr(proc.stderr.strip().splitlines()[-1]))
+        if texts != want:
+            fail(f"the CLI ({label}) read other texts than the session")
+    proc = subprocess.run([sys.executable, "-m", "retto_tpu_torch.cli", "info"],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    print(proc.stdout.strip(), flush=True)
+    if proc.returncode != 0 or kind not in proc.stdout:
+        fail(f"retto-torch info exited {proc.returncode} without naming the card")
+
+
+def _post(url: str, data: bytes, timeout: float = 120.0) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def serve_phase(fx, sessions: dict, staged: dict, workdir: Path) -> int:
+    """``serve.make_server`` on port 0: a PERFORMANCE session serves 8
+    concurrent ``/ocr`` POSTs through ``DevicePipeline.run_many`` on the
+    batcher thread (the db_epilogue kernel runs there), ``/ocr/stream``,
+    ``/metrics`` and ``/healthz``; then a COMPAT session serves ``/ocr``
+    through the staged path.  Returns the kernel launches of the timed
+    ``/ocr`` round."""
+    import threading
+    import urllib.request
+
+    pages = [(workdir / "pages" / f"p{i:02d}.png").read_bytes() for i in range(8)]
+    session = sessions["performance"]
+    ref = texts_of(session.device_pipeline().run_many(pages))
+    srv = make_server(session, "127.0.0.1", 0, max_wait_ms=20.0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def one(data: bytes) -> tuple[list[str], float]:
+        t = time.perf_counter()
+        body = json.loads(_post(f"{url}/ocr", data))
+        return [r["text"] for r in body["rec_result"]], time.perf_counter() - t
+
+    dp = session.device_pipeline()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, pages))  # warm: captures the batch shapes' graphs
+        db_pack.db_epilogue.launches = 0
+        b0, c0 = srv.batcher.batches, dp.compile_count()
+        got = list(pool.map(one, pages))
+    launches = db_pack.db_epilogue.launches
+    lat = sorted(ms for _, ms in got)
+    texts = [t for t, _ in got]
+    say("serve", mode="performance", requests=len(pages), concurrency=8,
+        batches=srv.batcher.batches - b0, captures_in_timed_round=dp.compile_count() - c0,
+        texts_equal_run_many=texts == ref,
+        ocr_latency_ms_p50=f"{(lat[3] + lat[4]) / 2 * 1e3:.3f}",
+        ocr_latency_ms_max=f"{lat[-1] * 1e3:.3f}", db_epilogue_launches=launches)
+    if texts != ref:
+        fail("the server's /ocr texts differ from run_many's")
+    if launches <= 0:
+        fail("the server's /ocr never launched the db_epilogue kernel")
+    lines = [json.loads(x) for x in _post(f"{url}/ocr/stream", pages[3]).splitlines() if x]
+    with urllib.request.urlopen(f"{url}/metrics", timeout=30) as r:
+        metrics = json.loads(r.read())
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    say("serve", stream_stages=[x.get("stage") for x in lines],
+        avg_batch=metrics["avg_batch"], healthz=health)
+    if [x.get("stage") for x in lines] != ["det", "cls", "rec"]:
+        fail("/ocr/stream did not give det, cls, rec")
+    if lines[2]["result"] and [r["text"] for r in lines[2]["result"]] != ref[3]:
+        fail("/ocr/stream's rec texts differ from run_many's")
+    if not metrics["avg_batch"] > 1 or health != {"ok": True}:
+        fail(f"/metrics avg_batch {metrics['avg_batch']} or /healthz {health}")
+    t = time.perf_counter()
+    srv.shutdown()
+    srv.server_close()
+    session.close()
+    close_s = time.perf_counter() - t
+
+    compat = sessions["compat"]
+    srv = make_server(compat, "127.0.0.1", 0)
+    if srv.batcher.runner is not compat:
+        fail("a COMPAT session's /ocr does not run the staged session")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    body = json.loads(_post(f"{url}/ocr", pages[1]))
+    compat_ok = [r["text"] for r in body["rec_result"]] == staged["compat"]["texts"][1]
+    t = time.perf_counter()
+    srv.shutdown()
+    srv.server_close()
+    compat.close()
+    close_s = max(close_s, time.perf_counter() - t)
+    say("serve", mode="compat", ocr_texts_equal_staged_run=compat_ok,
+        close_s_max=f"{close_s:.3f}")
+    if not compat_ok:
+        fail("the COMPAT server's /ocr texts differ from the staged session's")
+    if close_s > SERVER_CLOSE_S:
+        fail(f"server_close() and close() took {close_s:.1f} s (> {SERVER_CLOSE_S})")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -602,6 +862,12 @@ def main() -> None:
     fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
     launches = e2e_phase(fx)
     stream_phase(fx)
+    sessions = {m: mobile_session(m) for m in ("compat", "performance")}
+    staged = staged_phase(fx, sessions)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:  # inside the checkout
+        cli_phase(fx, staged, kind, Path(tmp))
+        serve_launches = serve_phase(fx, sessions, staged, Path(tmp))
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",
@@ -609,6 +875,7 @@ def main() -> None:
         "replaces": "retto_tpu/ops/pallas/db_pack.py:153",
         "also_replaces": "retto_tpu/ops/pallas/db_pack.py:127",
         "launches": launches,
+        "server_launches": serve_launches,
         "exact": True,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],

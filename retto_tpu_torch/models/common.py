@@ -17,12 +17,21 @@ every Dense keeps its rounding (a bias add or a residual add consumes it
 in bf16); tests/test_torch_bf16_sites.py reads the sites from XLA's
 compiled HLO.  Elementwise ops (hard-swish, GELU, the SE gate) run op by
 op in the compute dtype, so bf16 rounds after each op as in the JAX model.
+
+On the CPU the dense convs and the BatchNorm also take XLA:CPU's
+arithmetic (the native ``conv_xla`` and ``rsqrt_xla``): the conv sums in
+Eigen's blocked order of fused multiply-adds, the BatchNorm multiplies by
+XLA's ``rsqrt`` and fuses its multiply and add.  With them the mobile det
+matches the jitted Flax model bit for bit on the fixture pages but for 1
+of 196,608 logits (tests/test_torch_det_parity.py).  Depthwise convs keep
+oneDNN's order.  CUDA tensors take cuDNN either way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Callable, Iterator
 
 import torch
@@ -44,6 +53,7 @@ __all__ = [
     "depth_to_space",
     "upsample_nearest",
     "cast_compute",
+    "full_float32",
 ]
 
 
@@ -101,6 +111,23 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+_THREAD = threading.local()
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Within, on this thread, the convs that feed a BatchNorm run in full
+    float32 on CUDA: :func:`_tf32_convs` leaves cuDNN's TF32 flag as it
+    finds it (off, as the engines set it).  The staged engine runs its
+    forwards so (``pipeline.engine.TorchEngine``)."""
+    prev = getattr(_THREAD, "no_tf32", False)
+    _THREAD.no_tf32 = True
+    try:
+        yield
+    finally:
+        _THREAD.no_tf32 = prev
+
+
 @contextlib.contextmanager
 def _tf32_convs(x: torch.Tensor) -> Iterator[None]:
     """On a CUDA tensor, lets cuDNN run the float32 convs inside in TF32 and
@@ -109,11 +136,13 @@ def _tf32_convs(x: torch.Tensor) -> Iterator[None]:
     bf16's 7 bits exactly and each product fits in float32, so TF32
     computes a float32 conv of the same values at the tensor cores' rate;
     only the order and rounding of its sums differ from full float32.  The
-    switch is cuDNN's process-wide flag, held for the one conv: the
-    pipeline drives the models from one thread.  One flag, not
-    ``torch.backends.cudnn.flags``, which sets and restores every cuDNN
-    flag around each conv on a host-bound pipeline."""
-    if not x.is_cuda:
+    switch is cuDNN's process-wide flag, held for the one conv, so two
+    threads must not run model code at once: a session's staged engine and
+    its fused pipeline both call the models only under the session's one
+    dispatch lock (``TorchEngine.lock``, ``DevicePipeline._lock``).  One
+    flag, not ``torch.backends.cudnn.flags``, which sets and restores every
+    cuDNN flag around each conv on a host-bound pipeline."""
+    if not x.is_cuda or getattr(_THREAD, "no_tf32", False):
         yield
         return
     cudnn = torch.backends.cudnn
@@ -123,6 +152,37 @@ def _tf32_convs(x: torch.Tensor) -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32 = prev
+
+
+# Eigen caps the contraction block of a multi-threaded float32 product at
+# 320 (``computeProductBlockingSizes``), and the contraction evens the
+# blocks out, rounded up to 8: 1,152, 1,728 and 2,304 -> blocks of 288,
+# 3,456 -> 320 (measured against XLA:CPU, tools/cpu_parity_probe.py det)
+_XLA_KC_CAP = 320
+
+
+def _xla_kc(k: int) -> int:
+    even = -(-k // -(-k // _XLA_KC_CAP))
+    return -(-even // 8) * 8
+
+
+def _conv_f32_cpu(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
+                  pads: tuple[int, int, int, int]) -> torch.Tensor | None:
+    """float32 conv of NCHW ``x`` summed in XLA:CPU's order (the native
+    ``conv_xla``: Eigen's blocked fused multiply-add chains over (kh, kw,
+    cin)), or None without the native library.  ``pads``: (top, bottom,
+    left, right)."""
+    from ..native import conv_xla_native
+
+    n, cin, h, wd = x.shape
+    cout, _, kh, kw = w.shape
+    oh = (h + pads[0] + pads[1] - kh) // stride[0] + 1
+    ow = (wd + pads[2] + pads[3] - kw) // stride[1] + 1
+    out = conv_xla_native(x.detach().permute(0, 2, 3, 1).numpy(),
+                          w.detach().permute(2, 3, 1, 0).numpy(),
+                          stride, (pads[0], pads[2]), (oh, ow), _xla_kc(kh * kw * cin),
+                          torch.get_num_threads())
+    return None if out is None else torch.from_numpy(out).permute(0, 3, 1, 2)
 
 
 class Conv(nn.Conv2d):
@@ -141,6 +201,17 @@ class Conv(nn.Conv2d):
         ph = _same_pads(x.shape[2], kh, sh)
         pw = _same_pads(x.shape[3], kw, sw)
         x, w, b = x.to(self.weight.dtype), self.weight, self.bias
+        # on the CPU a dense bf16 conv sums in XLA:CPU's order; a conv over a
+        # 1 x 1 map with a bias (the SE gate) is left to oneDNN, as the
+        # rewrite into XLA's order did not match XLA there
+        if w.dtype != torch.float32 and not x.is_cuda and self.groups == 1 and (
+                b is None or x.shape[2] * x.shape[3] > 1):
+            y = _conv_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
+            if y is not None:
+                if f32_out:
+                    return y
+                y = y.to(w.dtype)
+                return y if b is None else y + b[:, None, None]
         if ph[0] == ph[1] and pw[0] == pw[1]:
             pad = (ph[0], pw[0])
         else:
@@ -169,7 +240,9 @@ class Dense(nn.Linear):
 class BatchNorm(nn.Module):
     """Inference BatchNorm with Flax's arithmetic (flax ``_normalize``):
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast back
-    to the input dtype.  eps 1e-5 (common.py:81-83)."""
+    to the input dtype.  eps 1e-5 (common.py:81-83).  On the CPU it takes
+    XLA:CPU's steps (``native`` ``rsqrt_xla``, the multiply and the add
+    fused); on CUDA, ``torch.rsqrt`` and two roundings."""
 
     def __init__(self, ch: int, eps: float = 1e-5):
         super().__init__()
@@ -180,9 +253,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()[:, None, None]) * mul[:, None, None]
-        return (y + self.bias.float()[:, None, None]).to(x.dtype)
+        var = self.running_var.float() + self.eps
+        d = x.float() - self.running_mean.float()[:, None, None]
+        if not x.is_cuda:
+            from ..native import rsqrt_xla_native
+
+            r = rsqrt_xla_native(var.detach().numpy())
+            if r is not None:
+                # XLA:CPU's fusion: its rsqrt, then one fused multiply-add
+                mul = torch.from_numpy(r) * self.weight.float()
+                y = d.double() * mul.double()[:, None, None] + self.bias.double()[:, None, None]
+                return y.float().to(x.dtype)
+        mul = torch.rsqrt(var) * self.weight.float()
+        return (d * mul[:, None, None] + self.bias.float()[:, None, None]).to(x.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -8,6 +8,11 @@ and the train-mode DB maps are not ported yet (``build_det`` raises).
 The model computes in NCHW.  ``nhwc=True`` takes the JAX package's NHWC
 input straight from the fused pipeline; every output is NCHW, as in the
 JAX model.
+
+The prob map of the engine contract (``forward`` without ``raw_logits``)
+follows XLA:CPU's compiled steps: the float32 sigmoid is ``1 / (1 +
+exp(-x))`` with XLA's own ``exp`` (:func:`exp_xla`), and the linear
+upsample is two passes of two-tap multiply-add chains (:func:`upsample_linear`).
 """
 
 from __future__ import annotations
@@ -20,16 +25,87 @@ from torch import nn
 
 from .common import Conv, ConvBNAct, depth_to_space, space_to_depth, upsample_nearest
 
-__all__ = ["ConcatFPN", "DBHeadV2", "DetModel", "TpuBackboneV2", "upsample_linear"]
+__all__ = [
+    "ConcatFPN", "DBHeadV2", "DetModel", "TpuBackboneV2", "exp_xla", "sigmoid_xla",
+    "upsample_linear",
+]
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush float32 subnormals to zero, as XLA:CPU's compiled code does."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, torch.zeros_like(x), x)
+
+
+def _c32(v: float) -> float:
+    """A constant as XLA holds it: rounded to float32."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once: the product of two float32 values
+    is exact in float64, and so is the sum here."""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+_EXP_POLY = tuple(_c32(v) for v in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                                    4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as XLA:CPU computes it (its Cephes polynomial, with
+    every multiply-add fused, as LLVM contracts them): ``n = floor(x*log2(e)
+    + 1/2)`` clamped to [-127, 127], ``r = x - n*C1 - n*C2``, a degree-5
+    polynomial in ``r``, times ``2**n``, subnormals flushed to zero.  Equal
+    to ``jnp.exp`` under ``jax.jit`` on every bfloat16 input
+    (tests/test_torch_det_prob_map.py); ``torch.exp`` differs on 494 of them."""
+    v = torch.clamp(x.to(torch.float32), _c32(-87.8), _c32(88.8))
+    n = torch.floor(_fma(v, _c32(1.44269504088896341), 0.5)).clamp(-127.0, 127.0)
+    r = _fma(n, -0.693359375, v)
+    r = _fma(n, _c32(2.12194440e-4), r)
+    z = _fma(r, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        z = _fma(z, r, c)
+    z = _fma(z, (r * r).to(torch.float64), r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return _ftz(z * pow2)
+
+
+def sigmoid_xla(x: torch.Tensor) -> torch.Tensor:
+    """``nn.sigmoid(x.astype(f32))`` as XLA:CPU compiles it: ``1 / (1 +
+    exp(-x))`` in float32 with :func:`exp_xla`, subnormals flushed
+    (dbnet.py:221)."""
+    return _ftz(torch.reciprocal(exp_xla(-x.float()) + 1.0))
+
+
+def _linear_pass(x: torch.Tensor, dim: int, factor: int) -> torch.Tensor:
+    """Upsample one axis of ``x`` by ``factor`` with ``jax.image.resize``'s
+    linear taps (half-pixel centres, the edge tap renormalised to 1).  Each
+    output has at most two taps ``k0 < k1``; the sum is XLA's dot as an FMA
+    chain in tap order, ``fma(w1, x[k1], w0 * x[k0])``."""
+    n = x.shape[dim]
+    dev = x.device
+    pos = (torch.arange(n * factor, dtype=torch.float64, device=dev) + 0.5) / factor - 0.5
+    k0 = torch.floor(pos).clamp(0, n - 1).long()
+    k1 = (torch.floor(pos) + 1).clamp(0, n - 1).long()
+    w1 = pos - torch.floor(pos)
+    w0 = 1.0 - w1
+    edge = (pos < 0) | (pos > n - 1)
+    w0 = torch.where(edge, torch.ones_like(w0), w0)
+    w1 = torch.where(edge, torch.zeros_like(w1), w1)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    w0, w1 = w0.to(torch.float32).reshape(shape), w1.reshape(shape)
+    a = (x.index_select(dim, k0) * w0).to(torch.float64)
+    return (x.index_select(dim, k1).to(torch.float64) * w1 + a).to(torch.float32)
 
 
 def upsample_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """``jax.image.resize(method="linear")`` upsampling of NCHW by an
-    integer factor (dbnet.py:356-360): half-pixel centres, edge taps
-    renormalised, which is ``F.interpolate(mode="bilinear",
-    align_corners=False, antialias=False)`` for upscales."""
-    return F.interpolate(x, scale_factor=factor, mode="bilinear",
-                         align_corners=False, antialias=False)
+    """``jax.image.resize(method="linear")`` upsampling of float32 NCHW by an
+    integer factor (dbnet.py:356-360): the H pass, then the W pass, each an
+    FMA chain over its two taps.  XLA:CPU's dot emitter picks its own order
+    per shape; this one is XLA's bit for bit at small maps and on all but
+    ~0.02% of a [512, 384] map's outputs (tests/test_torch_det_prob_map.py)."""
+    return _linear_pass(_linear_pass(x.float(), 2, factor), 3, factor)
 
 
 class TpuResBlock(nn.Module):
@@ -111,7 +187,7 @@ class DBHeadV2(nn.Module):
             logit = depth_to_space(logit, self.factor)
         if return_logits:
             return logit
-        return torch.sigmoid(logit.float())
+        return sigmoid_xla(logit)
 
 
 class DetModel(nn.Module):

@@ -1,7 +1,10 @@
 """Native (C++) postprocess backend.
 
 Port copy of ``retto_tpu/native/__init__.py``: the port imports nothing of the JAX
-package, so it keeps its own copy of this host-only module.
+package, so it keeps its own copy of this host-only module.  The port adds
+``conv_xla_native`` and ``rsqrt_xla_native`` (``conv_xla.cpp``): the
+convolution and the rsqrt in XLA:CPU's arithmetic, which ``models.common``
+uses on CPU tensors.
 
 Compiled lazily with g++ at first use (no pybind11 in this environment;
 plain C ABI + ctypes).  Falls back silently to the NumPy implementation
@@ -33,8 +36,9 @@ def _build_lib() -> Path | None:
 
     try:
         return build_shared(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"],
-            [_HERE / "postprocess.cpp"], "libretto_post.so", timeout=120,
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"],
+            [_HERE / "postprocess.cpp", _HERE / "conv_xla.cpp"], "libretto_post.so",
+            timeout=120,
         )
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         logger.warning("native postprocess build failed (%s); using numpy", e)
@@ -68,6 +72,10 @@ def _load() -> ctypes.CDLL | None:
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int,  # max_boxes_per_img
     ]
+    lib.rt_conv_xla.restype = ctypes.c_int
+    lib.rt_conv_xla.argtypes = [ctypes.POINTER(ctypes.c_float)] * 3 + [ctypes.c_int] * 15
+    lib.rt_rsqrt_xla.restype = None
+    lib.rt_rsqrt_xla.argtypes = [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_int]
     lib.rt_is_gray.restype = ctypes.c_int
     lib.rt_is_gray.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
     lib.rt_det_chunk.restype = ctypes.c_int
@@ -385,3 +393,37 @@ def is_gray_native(img: np.ndarray) -> bool | None:
             ctypes.c_int64(h * w),
         )
     )
+
+
+def conv_xla_native(
+    x: np.ndarray, w: np.ndarray, stride: tuple[int, int], pads: tuple[int, int],
+    out_hw: tuple[int, int], kc: int, threads: int,
+) -> np.ndarray | None:
+    """float32 conv in XLA:CPU's summation order (``conv_xla.cpp``):
+    ``x`` NHWC, ``w`` HWIO, ``pads`` (top, left); None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.float32)
+    w = np.ascontiguousarray(w, np.float32)
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    out = np.empty((n, *out_hw, cout), np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    err = lib.rt_conv_xla(x.ctypes.data_as(fp), w.ctypes.data_as(fp), out.ctypes.data_as(fp),
+                          n, h, wd, cin, kh, kw, cout, stride[0], stride[1], pads[0], pads[1],
+                          out_hw[0], out_hw[1], kc, threads)
+    return None if err else out
+
+
+def rsqrt_xla_native(x: np.ndarray) -> np.ndarray | None:
+    """float32 ``rsqrt`` as XLA:CPU computes it (``conv_xla.cpp``); None
+    without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.float32)
+    out = np.empty_like(x)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.rt_rsqrt_xla(x.ctypes.data_as(fp), out.ctypes.data_as(fp), x.size)
+    return out

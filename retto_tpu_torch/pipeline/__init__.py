@@ -1,4 +1,5 @@
 from .device_pipeline import DevicePipeline
+from .engine import Engine, FakeEngine, TorchEngine
 from .session import RettoSession
 
-__all__ = ["DevicePipeline", "RettoSession"]
+__all__ = ["DevicePipeline", "Engine", "FakeEngine", "RettoSession", "TorchEngine"]

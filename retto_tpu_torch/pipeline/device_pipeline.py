@@ -28,7 +28,9 @@ Differences from the JAX pipeline, all of them scheduling:
 * every dispatch (det, cls + rec, the crop concat) and every capture runs
   under one lock on the device's current stream, so the upload thread
   and the calling thread take turns where XLA dispatches from both at
-  once; the uploads ride on that stream too, not on a stream of their own;
+  once; the uploads ride on that stream too, not on a stream of their own.
+  The lock is the owning session's dispatch lock (``lock=``), which its
+  staged ``TorchEngine`` holds around every forward too;
 * ``DevicePipeline(mesh=)`` (data parallelism over several cards) is not
   ported.
 
@@ -38,8 +40,8 @@ normalize, YUV->RGB and the warp tails run in float32, and TF32 is off for
 float32 matmuls and convolutions on CUDA, except inside the models' convs
 that feed a BatchNorm (float32 sums of bf16 values, which TF32 computes
 exactly; ``models.common``).  The models flip cuDNN's process-wide TF32
-flag around those convs, which is safe because model code runs only under
-the dispatch lock.
+flag around those convs, which is safe because every model call of the
+session, fused or staged, runs under its one dispatch lock.
 """
 
 from __future__ import annotations
@@ -270,6 +272,7 @@ class DevicePipeline:
         chars: CharacterDict,
         device: str | torch.device = "cuda",
         metrics: PipelineMetrics | None = None,
+        lock: threading.RLock | None = None,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -300,10 +303,10 @@ class DevicePipeline:
         f32 = dict(dtype=torch.float32, device=self.device)
         self._det_norm = tuple(torch.tensor(v, **f32) for v in (
             config.det.mean, config.det.std, config.det.scale))
-        # every model dispatch and capture holds the lock (see the module
-        # docstring); the upload thread streams chunks in call order, the
-        # fetch threads wait for the det maps' copies to the host
-        self._lock = threading.RLock()
+        # every model dispatch and capture holds the session's dispatch lock
+        # (see the module docstring); the upload thread streams chunks in
+        # call order, the fetch threads wait for the det maps' copies
+        self._lock = lock if lock is not None else threading.RLock()
         self._det_graphs = GraphCache(self.device)
         self._clsrec_graphs = GraphCache(self.device)
         self._staging = _Staging() if self.device.type == "cuda" else None

@@ -1,3 +1,4 @@
 from .metrics import PipelineMetrics
+from .timing import StageTimers, device_fetch_sync, time_fn
 
-__all__ = ["PipelineMetrics"]
+__all__ = ["PipelineMetrics", "StageTimers", "device_fetch_sync", "time_fn"]

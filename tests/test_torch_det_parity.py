@@ -3,14 +3,13 @@ the JAX ``DevicePipeline._det_fwd`` on the 8 fixture pages, with the shipped
 mobile checkpoints: the same planes in, the row-packed mask and the pooled
 prob map out.
 
-Counts reached (all stated here because they are the test's bounds):
-* mask: 0 of 196,608 pixels differ on page 3 (7 before the BatchNorm convs
-  kept their float32 sums; ROADMAP Queue 3), 5 over all 8 pages;
-* pooled prob map: 43 of 49,152 bytes differ on page 3, each by one level.  The
-  epilogue's arithmetic is XLA's to the bit (tests/test_torch_db_epilogue.py);
-  the logits themselves differ in the last float32 bits because XLA:CPU's
-  and oneDNN's 3x3 convolutions sum in different orders, and a pooled
-  byte near a rounding boundary moves by one."""
+Counts reached (all stated here because they are the test's bounds): 0
+mask pixels and 0 pooled prob bytes differ on all 8 pages.  Before the
+port's CPU convs summed in XLA:CPU's order and its CPU BatchNorm took
+XLA's rsqrt with a fused multiply-add (``models.common``, the native
+``conv_xla``), 5 mask pixels differed over the 8 pages and 43 of 49,152
+pooled bytes on page 3, each by one level (ROADMAP Queue 3 item 2).  The
+epilogue's arithmetic is XLA's to the bit (tests/test_torch_db_epilogue.py)."""
 
 from __future__ import annotations
 
@@ -76,11 +75,15 @@ def test_det_mask_equals_jax_on_page_3(det_outputs):
 
 
 def test_det_mask_against_jax_on_all_pages(det_outputs):
-    assert sum(int((m != jm).sum()) for m, _, jm, _, _ in det_outputs) <= 5
+    assert sum(int((m != jm).sum()) for m, _, jm, _, _ in det_outputs) == 0
 
 
 def test_pooled_prob_map_against_jax_on_page_3(det_outputs):
     _, prob, _, jprob, _ = det_outputs[PAGE]
     assert prob.shape == jprob.shape == (1, 256, 192)
-    diff = np.abs(prob.astype(np.int16) - jprob.astype(np.int16))
-    assert diff.max() <= 1 and int((diff > 0).sum()) <= 43
+    np.testing.assert_array_equal(prob, jprob)
+
+
+def test_pooled_prob_map_equals_jax_on_all_pages(det_outputs):
+    for _, prob, _, jprob, _ in det_outputs:
+        np.testing.assert_array_equal(prob, jprob)

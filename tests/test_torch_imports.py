@@ -63,3 +63,17 @@ def test_importing_the_port_loads_no_jax_or_pil():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_and_serve_entry_points_load_no_jax():
+    """The user programs of the port: importing ``retto_tpu_torch.cli`` and
+    ``retto_tpu_torch.serve`` and running ``main(["--help"])`` loads no
+    jax, flax or retto_tpu module."""
+    code = ("import sys, retto_tpu_torch.cli as cli, retto_tpu_torch.serve\n"
+            "try:\n    cli.main(['--help'])\nexcept SystemExit as e:\n    assert e.code == 0\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'retto_tpu')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "retto-torch" in proc.stdout

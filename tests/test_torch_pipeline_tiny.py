@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from retto_tpu.config import BucketConfig as JBucket, SessionConfig as JConfig
-from retto_tpu.models import MODEL_PRESETS, build_cls, build_det, build_rec
+from retto_tpu.models import build_det
 from retto_tpu.ops.charset import CharacterDict as JChars, ascii_charset
 from retto_tpu.pipeline.session import RettoSession as JSession
 from retto_tpu.weights import save_params
@@ -25,52 +25,12 @@ from retto_tpu_torch import BucketConfig, RettoSession, SessionConfig
 from retto_tpu_torch.ops.charset import CharacterDict
 from retto_tpu_torch.ops.db_pack import db_epilogue
 from retto_tpu_torch.pipeline import device_pipeline
-
-ARCH = {
-    "det": dict(backbone="tpu_v2", widths=[32, 64, 96], depths=[1, 1, 1], inner_ch=32,
-                head_ch=32),
-    "cls": dict(arch="dense", width=16),
-    "rec": {k: list(v) if isinstance(v, tuple) else v
-            for k, v in MODEL_PRESETS["tiny"]["rec"].items()},
-}
+from torch_tiny_ckpt import configs as _configs, write_tiny_checkpoints
 
 
 @pytest.fixture(scope="module")
 def tiny_weights(tmp_path_factory):
-    d = tmp_path_factory.mktemp("tiny_ckpt")
-    n_cls = len(ascii_charset()) + 2
-    tup = {k: {kk: tuple(vv) if isinstance(vv, list) else vv for kk, vv in v.items()}
-           for k, v in ARCH.items()}
-    models = {
-        "det": build_det("bare", compute_dtype="float32", **tup["det"]),
-        "cls": build_cls("bare", compute_dtype="float32", **tup["cls"]),
-        "rec": build_rec("bare", num_classes=n_cls, compute_dtype="float32", **tup["rec"]),
-    }
-    shapes = {"det": (1, 3, 64, 64), "cls": (1, 3, 48, 192), "rec": (1, 3, 48, 320)}
-    paths = {}
-    for i, (k, m) in enumerate(models.items()):
-        x = jnp.zeros(shapes[k])
-        # det: init in train mode so the threshold head (a trained
-        # checkpoint carries it) exists too
-        kw = {"train": True} if k == "det" else {}
-        variables = jax.jit(lambda r, v, m=m, kw=kw: m.init(r, v, **kw))(
-            jax.random.PRNGKey(i), x)
-        paths[k] = str(d / f"{k}.npz")
-        save_params(paths[k], variables, meta={"preset": "bare", "overrides": ARCH[k]})
-    return paths
-
-
-def _configs(cls_cfg, bucket_cls, transfer):
-    cfg = cls_cfg()
-    cfg.det.limit_side_len = 128
-    cfg.det.thresh = 0.45
-    cfg.det.box_thresh = 0.1
-    cfg.det.max_candidates = 8
-    cfg.buckets = bucket_cls(det_pad_to=64, det_max_side=256, rec_width_buckets=(320,),
-                             cls_batch_buckets=(4,), rec_batch_buckets=(4,))
-    cfg.engine.compute_dtype = "float32"
-    cfg.engine.transfer_format = transfer
-    return cfg
+    return write_tiny_checkpoints(tmp_path_factory.mktemp("tiny_ckpt"))
 
 
 def _images():

@@ -22,7 +22,12 @@ part:
   (differing outputs, largest difference); for the first layer that
   differs, the same with its conv computed as an explicit float32 im2col
   sum in (kh, kw, cin) order, and with the BatchNorm as a fused
-  multiply-add using XLA's ``rsqrt`` for its multiplier.
+  multiply-add using XLA's ``rsqrt`` for its multiplier.  The port's CPU
+  layers now take XLA:CPU's arithmetic (``models.common``: Eigen's blocked
+  FMA order for the conv, read from ``XLA_FLAGS=--xla_dump_to`` output,
+  where the conv is an HLO ``convolution`` run by the runtime and the
+  rsqrt is ``rsqrtps`` plus two Newton steps), and every layer reads 0;
+  ``RETTO_NATIVE=0`` gives oneDNN's order and ``torch.rsqrt`` again.
 """
 
 from __future__ import annotations

@@ -19,9 +19,16 @@ Each reference is flat: ``*_page`` (page index per line), ``*_boxes``
 ([n, 4, 2] quads in page coordinates) and ``*_texts``.  Ground truth is
 ``gt_page``/``gt_boxes`` (xyxy)/``gt_texts``.
 
-Run from the repository root (JAX on the CPU, a few minutes):
+``retto_tpu_torch/testdata/smoke_staged.npz`` holds the staged references:
+the JAX ``RettoSession.run`` (mobile checkpoints, CPU) in each mode, as
+``{compat,performance}_{page,boxes,texts,det_scores,rec_scores}``, over
+the 8 gray pages (ids 0-7), the tinted page 0 (id 8) and the tinted and
+rotated page 2 (id 9).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py
+Run from the repository root (JAX on the CPU, a few minutes; ``--staged``
+writes only the staged file):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--staged]
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz"
+STAGED_OUT = OUT.with_name("smoke_staged.npz")
 TINT = np.asarray([1.0, 0.94, 0.86], np.float32)
 ROTATE_DEG = 176.0
 
@@ -61,7 +69,41 @@ def _flat(results, pages_idx):
             np.asarray(texts, dtype=str))
 
 
+def staged_pages(pages: np.ndarray) -> list[np.ndarray]:
+    """The 10 staged inputs: gray pages 0-7, tinted page 0, rotated page 2."""
+    rgb = [np.repeat(p[..., None], 3, axis=2) for p in pages]
+    return rgb + [tint_page(pages[0]), rotate_page(tint_page(pages[2]))]
+
+
+def write_staged(pages: np.ndarray) -> None:
+    from retto_tpu.config import PipelineMode, SessionConfig
+    from retto_tpu.ops.charset import CharacterDict
+    from retto_tpu.pipeline.session import RettoSession
+
+    wd = ROOT / "trained_weights"
+    chars = CharacterDict((wd / "charset.txt").read_text().splitlines())
+    weights = {k: str(wd / f"{k}.npz") for k in ("det", "cls", "rec")}
+    inputs = staged_pages(pages)
+    out = {}
+    for mode in ("compat", "performance"):
+        session = RettoSession(SessionConfig(mode=PipelineMode(mode)), preset="mobile",
+                               charset=chars, weights=weights)
+        res = [session.run(x) for x in inputs]
+        page, boxes, texts = _flat(res, range(len(inputs)))
+        out[f"{mode}_page"], out[f"{mode}_boxes"], out[f"{mode}_texts"] = page, boxes, texts
+        out[f"{mode}_det_scores"] = np.asarray(
+            [b.score for r in res for b in r.det_result], np.float32)
+        out[f"{mode}_rec_scores"] = np.asarray(
+            [t.score for r in res for t in r.rec_result], np.float32)
+        print(f"staged {mode}: {len(texts)} lines over {len(inputs)} pages")
+    np.savez_compressed(STAGED_OUT, **out)
+    print(f"wrote {STAGED_OUT.relative_to(ROOT)} ({STAGED_OUT.stat().st_size} bytes)")
+
+
 def main() -> None:
+    if "--staged" in sys.argv[1:]:
+        write_staged(np.load(OUT)["pages"])
+        return
     from retto_tpu.config import SessionConfig
     from retto_tpu.ops.charset import CharacterDict
     from retto_tpu.pipeline.session import RettoSession
@@ -105,6 +147,7 @@ def main() -> None:
     print(f"wrote {OUT.relative_to(ROOT)} ({OUT.stat().st_size} bytes): "
           f"{len(gt_texts)} gt lines, {len(out['jax_texts'])} JAX lines, "
           f"{hits} JAX lines equal to a ground-truth line")
+    write_staged(pages)
 
 
 if __name__ == "__main__":
