@@ -52,7 +52,26 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    cls, rec), ``/metrics`` (``avg_batch`` > 1), ``/healthz``; then a COMPAT
    session serves ``/ocr`` through the staged path; ``server_close()`` and
    ``close()`` must return within ``SERVER_CLOSE_S``;
-8. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+8. presets: the server preset (``det_server.npz``, ``rec_server.npz``,
+   ``cls.npz``) through the fused ``run_many`` on the 8 gray fixture pages,
+   and the big-vocab rec alone (``rec_big.npz``, ``charset_big.txt``, 6,625
+   classes) on 16 crops at 48x320, each held to its JAX fixture
+   (``retto_tpu_torch/testdata/smoke_presets.npz``) by the line rule of
+   phase 3;
+9. train: from each shipped mobile checkpoint (float32 master weights,
+   bf16 compute) three steps of the tool's AdamW schedule on the fixture
+   batches (``retto_tpu_torch/testdata/smoke_train.npz``: 16 rec lines at
+   48x512, 16 cls crops in two views, 2 det pages at 512x512 whose DB maps
+   ``train.data.db_gt_device`` draws from their boxes), the losses held to
+   the JAX trainer's within ``TRAIN_LOSS_TOL``, every loss and gradient
+   finite; ``CheckpointManager`` save and restore and a ``save_params``
+   export that reloads into the port with equal outputs; then warm steps
+   timed at the tool's batch sizes (rec 128, cls 128 in two views, det 8),
+   steps/s per target, median and spread.  The synthetic trainer
+   (``python -m retto_tpu_torch.train.synthetic``) is not run: its
+   renderers need the DejaVu fonts, which the H100 host checked for this
+   script lacks;
+10. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
 ``compile_count()`` (captured graphs) is printed after each phase.
@@ -86,8 +105,23 @@ from retto_tpu_torch import kernels, native  # noqa: E402
 from retto_tpu_torch._build import BUILD_DIR  # noqa: E402
 from retto_tpu_torch.ops import db_pack  # noqa: E402
 from retto_tpu_torch.ops.charset import CharacterDict  # noqa: E402
+from retto_tpu_torch.models import build_cls, build_det, build_rec  # noqa: E402
+from retto_tpu_torch.models.common import cast_compute  # noqa: E402
+from retto_tpu_torch.ops.ctc import ctc_greedy_decode  # noqa: E402
 from retto_tpu_torch.pipeline.device_pipeline import _is_aligned  # noqa: E402
 from retto_tpu_torch.serve import make_server  # noqa: E402
+from retto_tpu_torch.train import (  # noqa: E402
+    ctc_loss, db_loss, init_train_state, make_train_step, warmup_cosine_decay,
+)
+from retto_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from retto_tpu_torch.train.data import (  # noqa: E402
+    ClsDeviceData, DetDeviceData, RecDeviceData, gather_cls_batch, gather_det_batch,
+    gather_rec_batch,
+)
+from retto_tpu_torch.train.synthetic import _cls_loss_sym, _cls_views  # noqa: E402
+from retto_tpu_torch.weights import (  # noqa: E402
+    export_flax_params, load_flax_params, load_params_meta, save_params,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SHAPE = (4, 512, 384)  # det chunk 4 x stride-2 logits of a 1024x768 bucket
@@ -110,6 +144,19 @@ STREAM_TEXT_MIN = 0.99
 STREAM_SIZES = [(960, 704), (640, 512), (960, 704), (768, 576)]
 # server_close() and the session's close() must return within this many s
 SERVER_CLOSE_S = 10.0
+# train: the port's losses on the fixture batches (testdata/smoke_train.npz)
+# and the norm of its parameters' change against the JAX trainer's,
+# relative: (loss 1, losses 2-4, change).  Measured on the CPU first
+# (tests/test_torch_train_fixture.py, where MEASURED holds the figures),
+# then on the card; the bounds are about twice the larger of the two
+TRAIN_LOSS_TOL = {"rec": (2e-3, 5e-3, 6e-4), "cls": (5e-4, 2e-3, 1.2e-3),
+                  "det": (3e-3, 0.02, 1.5e-3)}
+# the tool's batch sizes (tools/train_synthetic.py): rec 128 lines at 48x512,
+# cls 128 crops (two views each), det 8 pages at 512x512
+TRAIN_BATCH = {"rec": 128, "cls": 128, "det": 8}
+TRAIN_TIMED_STEPS = 10
+# presets: the server pipeline and the big-vocab rec against their JAX
+# fixture (testdata/smoke_presets.npz), by the main path's line rule
 
 
 def say(phase: str, **kw) -> None:
@@ -851,6 +898,237 @@ def serve_phase(fx, sessions: dict, staged: dict, workdir: Path) -> int:
     return launches
 
 
+def train_model(kind: str, device: str):
+    """The shipped mobile checkpoint of ``kind`` in a port model with float32
+    parameters computing in bf16, on ``device``."""
+    wd = ROOT / "trained_weights"
+    flat, meta = load_params_meta(wd / f"{kind}.npz")
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["overrides"].items()}
+    build = {"det": build_det, "cls": build_cls, "rec": build_rec}[kind]
+    if kind == "rec":
+        kw["num_classes"] = len((wd / "charset.txt").read_text().splitlines()) + 2
+    return load_flax_params(build(meta["preset"], compute_dtype="bfloat16", **kw), flat).to(device)
+
+
+def train_data(kind: str, fx, device: str):
+    """The fixture's ``kind`` dataset on ``device``, in the train.data holder."""
+    t = {k: torch.from_numpy(fx[k]).to(device) for k in fx.files if k.startswith(kind)}
+    if kind == "rec":
+        return RecDeviceData(t["rec_lines"], t["rec_widths"], t["rec_labels"], t["rec_lengths"])
+    if kind == "cls":
+        return ClsDeviceData(t["cls_lines"], t["cls_widths"])
+    return DetDeviceData(t["det_pages"], t["det_boxes"])
+
+
+def train_batch(kind: str, fx, device: str, model):
+    """(batch tensors, loss_fn, forward) of the fixture's ``kind`` batch,
+    gathered without augmentation."""
+    data = train_data(kind, fx, device)
+    if kind == "rec":
+        x, lab, ln = gather_rec_batch(data, torch.arange(len(data.lines), device=device))
+        return (x, lab, ln), ctc_loss, lambda m, v: m(v, return_logits=True)
+    if kind == "cls":
+        idx = torch.arange(len(data.lines), device=device)
+        rot = torch.from_numpy(fx["cls_rot"]).to(device).long()
+        x, lab = gather_cls_batch(data, idx, rot)
+        x_opp, _ = gather_cls_batch(data, idx, 1 - rot)
+        return (torch.cat([x, x_opp]), lab), _cls_loss_sym, None
+    idx = torch.arange(len(data.pages), device=device)
+    return gather_det_batch(data, idx, out_stride=model.out_stride), db_loss, None
+
+
+def train_fixture_losses(fx, kind: str, device: str):
+    """Four steps from the shipped checkpoint on the fixture batch under
+    the tool's AdamW schedule for three (the first and the fourth update
+    at rate 0): (losses, the L2 norm of the parameters' change, model,
+    state, batch).  Fails on a non-finite loss or gradient."""
+    model = train_model(kind, device)
+    batch, loss_fn, forward = train_batch(kind, fx, device, model)
+    state = init_train_state(model, warmup_cosine_decay(float(fx[f"{kind}_lr"]), 1, 3))
+    step = make_train_step(model, loss_fn, forward=forward)
+    start = [p.detach().clone() for p in model.parameters()]
+    losses = []
+    for i in range(4):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+        if not math.isfinite(losses[-1]) or bad:
+            fail(f"train {kind} step {i + 1}: loss {losses[-1]}, non-finite gradients {bad[:3]}")
+    with torch.no_grad():
+        delta = math.sqrt(sum(float(torch.sum((p - p0) ** 2))
+                              for p, p0 in zip(model.parameters(), start)))
+    return losses, delta, model, state, batch
+
+
+def train_phase() -> dict:
+    """The training path on the card: each target from its shipped
+    checkpoint on the fixture batch against the JAX trainer's losses; a
+    checkpoint save/restore and a Flax-layout export that reloads; then
+    warm steps at the tool's batch sizes."""
+    fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_train.npz")
+    out = {}
+    for kind in ("rec", "cls", "det"):
+        losses, delta, model, state, batch = train_fixture_losses(fx, kind, "cuda")
+        ref = fx[f"{kind}_losses"].astype(float)
+        ref_delta = float(fx[f"{kind}_delta_norm"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        rel_delta = abs(delta - ref_delta) / ref_delta
+        tol1, tol, tol_delta = TRAIN_LOSS_TOL[kind]
+        say("train", kind=kind, losses=[round(v, 6) for v in losses],
+            jax_losses=[round(float(v), 6) for v in ref], rel_diff=[f"{r:.2e}" for r in rel],
+            delta_norm=round(delta, 6), jax_delta_norm=round(ref_delta, 6),
+            delta_rel_diff=f"{rel_delta:.2e}", tol=(tol1, tol, tol_delta))
+        if rel[0] > tol1 or max(rel[1:]) > tol or rel_delta > tol_delta:
+            fail(f"train {kind}: losses {losses} and change {delta} against JAX "
+                 f"{ref.tolist()} and {ref_delta}")
+        if kind == "cls":
+            checkpoint_check(model, state, batch)
+        out[kind] = train_speed(kind, fx)
+        del model, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_check(model, state, batch) -> None:
+    """CheckpointManager save and restore into a fresh state, and
+    ``save_params`` of the trained model reloaded into a fresh port model:
+    equal parameters and equal inference outputs."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+        mgr.save(state.step, state)
+        fresh = init_train_state(train_model("cls", "cuda"), 1e-3)
+        restored = mgr.restore(fresh)
+        mgr.close()
+        same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                    restored.model.state_dict().values()))
+        path = Path(tmp) / "cls.npz"
+        save_params(path, export_flax_params(model), meta={"preset": "mobile", "overrides": {}})
+        flat, _ = load_params_meta(path)
+        reloaded = load_flax_params(build_cls("mobile", compute_dtype="bfloat16"), flat)
+        model.eval()
+        reloaded.to("cuda").eval()
+        with torch.no_grad():
+            equal = torch.equal(model(batch[0]), reloaded(batch[0]))
+        model.train()
+    say("train", checkpoint_restored_equal=same, restored_step=restored.step,
+        exported_npz_outputs_equal=equal)
+    if not same or restored.step != state.step or not equal:
+        fail("a checkpoint did not restore, or the exported npz did not reload equal")
+
+
+def train_speed(kind: str, fx) -> dict:
+    """Warm train steps at the tool's batch size, each the step of the
+    tool's loop (retto_tpu_torch/train/synthetic.py): indices drawn on the
+    host and uploaded, the batch gathered and augmented on the device with
+    a torch.Generator (for det with its GT maps from ``db_gt_device``), the
+    train step, and for rec the EMA of the weights.  steps/s of the median
+    step (each synchronized), with the spread."""
+    torch.cuda.reset_peak_memory_stats()
+    model = train_model(kind, "cuda")
+    data = train_data(kind, fx, "cuda")
+    n, b = len(data.pages if kind == "det" else data.lines), TRAIN_BATCH[kind]
+    _, loss_fn, forward = train_batch(kind, fx, "cuda", model)
+    state = init_train_state(model, 1e-4)
+    step = make_train_step(model, loss_fn, forward=forward)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = list(model.parameters())
+    ema = [p.detach().clone() for p in params]
+
+    def tool_step():
+        idx = torch.from_numpy(rng.integers(0, n, b)).to("cuda")
+        if kind == "rec":
+            x, lab, ln = gather_rec_batch(data, idx, generator=gen)
+            st, loss = step(state, x, lab, ln)
+            with torch.no_grad():
+                torch._foreach_mul_(ema, 0.999)
+                torch._foreach_add_(ema, [p.detach() for p in params], alpha=0.001)
+            return st, loss
+        if kind == "cls":
+            return step(state, *_cls_views(data, idx, rng, gen))
+        return step(state, *gather_det_batch(data, idx, out_stride=model.out_stride,
+                                              generator=gen))
+
+    for _ in range(3):
+        state, loss = tool_step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t = time.perf_counter()
+        state, loss = tool_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    if not math.isfinite(float(loss)):
+        fail(f"train {kind}: non-finite loss at batch {TRAIN_BATCH[kind]}")
+    times.sort()
+    med = times[len(times) // 2]
+    res = {"batch": TRAIN_BATCH[kind], "steps_per_s_median": 1 / med,
+           "steps_per_s_best": 1 / times[0], "steps_per_s_worst": 1 / times[-1],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    say("train", kind=kind, batch=TRAIN_BATCH[kind],
+        steps_per_s_median=f"{res['steps_per_s_median']:.3f}",
+        steps_per_s_best=f"{res['steps_per_s_best']:.3f}",
+        steps_per_s_worst=f"{res['steps_per_s_worst']:.3f}",
+        step_ms=[round(x * 1e3, 2) for x in times],
+        peak_mem_gib=f"{res['peak_mem_gib']:.2f}")
+    return res
+
+
+def presets_phase() -> None:
+    """The server preset through the fused pipeline on the 8 gray fixture
+    pages, and the big-vocab rec alone on 16 crops at 48x320, each against
+    its JAX fixture by the main path's line rule."""
+    fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_presets.npz")
+    pages = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")["pages"]
+    wd = ROOT / "trained_weights"
+    chars = CharacterDict((wd / "charset.txt").read_text().splitlines())
+    weights = {"det": str(wd / "det_server.npz"), "cls": str(wd / "cls.npz"),
+               "rec": str(wd / "rec_server.npz")}
+    cfg = SessionConfig()
+    cfg.engine.transfer_format = "yuv420"
+    with RettoSession(cfg, preset="server", charset=chars, weights=weights,
+                      device="cuda") as session:
+        dp = session.device_pipeline()
+        rgb = [np.repeat(p[..., None], 3, axis=2) for p in pages]
+        dp.run_many(rgb)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = dp.run_many(rgb)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        dp.close()
+    agree, total, dists = compare("server", _lines(res, range(len(pages))), fx["server_page"],
+                                  fx["server_boxes"], fx["server_texts"])
+    frac = agree / max(total, 1)
+    say("presets", preset="server", lines_agreeing_with_jax=f"{agree}/{total}",
+        fraction=f"{frac:.4f}", box_max_px=f"{max(dists, default=0.0):.2f}",
+        warm_run_many_s=f"{run_s:.3f}", images_per_s=f"{len(pages) / run_s:.3f}")
+    if total == 0 or frac < TEXT_MATCH_MIN or max(dists, default=0.0) > BOX_MAX_PX:
+        fail(f"server preset: {agree}/{total} lines agree, box "
+             f"{max(dists, default=0.0):.2f} px")
+
+    big = CharacterDict((wd / "charset_big.txt").read_text(encoding="utf-8").splitlines())
+    flat, meta = load_params_meta(wd / "rec_big.npz")
+    model = load_flax_params(build_rec(meta["preset"], num_classes=big.num_classes,
+                                       compute_dtype="bfloat16", **meta["overrides"]), flat)
+    model = cast_compute(model, torch.bfloat16).to("cuda").eval()
+    crops = torch.from_numpy(fx["big_crops"]).cuda()
+    x = (crops.float() / 255.0 - 0.5) / 0.5
+    col = torch.arange(x.shape[2], device="cuda")[None, None, :, None]
+    x = torch.where(col < torch.from_numpy(fx["big_widths"]).cuda()[:, None, None, None], x, 0.0)
+    with torch.inference_mode():
+        idx, keep, _ = ctc_greedy_decode(model(x.permute(0, 3, 1, 2).contiguous()))
+    texts = big.decode_indices(idx.cpu().numpy(), keep.cpu().numpy())
+    agree = sum(a == str(b) for a, b in zip(texts, fx["big_texts"]))
+    right = sum(a == str(b) for a, b in zip(texts, fx["big_gt"]))
+    say("presets", preset="rec_big", classes=big.num_classes,
+        lines_agreeing_with_jax=f"{agree}/{len(texts)}", lines_read_right=f"{right}/{len(texts)}")
+    if agree / len(texts) < TEXT_MATCH_MIN:
+        fail(f"big-vocab rec: {agree}/{len(texts)} lines agree with JAX")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -868,6 +1146,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:  # inside the checkout
         cli_phase(fx, staged, kind, Path(tmp))
         serve_launches = serve_phase(fx, sessions, staged, Path(tmp))
+    presets_phase()
+    train = train_phase()
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",
@@ -891,6 +1171,8 @@ def main() -> None:
         "mask_only_bound_ms": k["mask_only_bound_ms"],
     }]}
     say("done", total_s=f"{time.perf_counter() - t0:.1f}")
+    print("[train] steps_per_s " + json.dumps({k: round(v["steps_per_s_median"], 4)
+                                              for k, v in train.items()}), flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

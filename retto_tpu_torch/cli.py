@@ -79,11 +79,8 @@ def _build_session(args):
             charset = CharacterDict(cs.read_text(encoding="utf-8").splitlines())
     if args.charset:
         charset = CharacterDict.from_file(args.charset)
-    try:
-        return RettoSession(cfg, preset=args.preset, charset=charset, weights=weights,
-                            device=device)
-    except NotImplementedError as e:  # a model family not ported yet
-        raise CliError(str(e)) from e
+    return RettoSession(cfg, preset=args.preset, charset=charset, weights=weights,
+                        device=device)
 
 
 def cmd_ocr(args) -> int:

@@ -23,8 +23,17 @@ arithmetic (the native ``conv_xla`` and ``rsqrt_xla``): the conv sums in
 Eigen's blocked order of fused multiply-adds, the BatchNorm multiplies by
 XLA's ``rsqrt`` and fuses its multiply and add.  With them the mobile det
 matches the jitted Flax model bit for bit on the fixture pages but for 1
-of 196,608 logits (tests/test_torch_det_parity.py).  Depthwise convs keep
-oneDNN's order.  CUDA tensors take cuDNN either way.
+of 196,608 logits (tests/test_torch_det_parity.py).  A depthwise conv
+(``groups == C``) sums its taps in the fixed tree XLA:CPU's Eigen
+contraction uses (:data:`_DW_TREES`).  CUDA tensors take cuDNN either way.
+
+Training (``module.train()``) keeps the parameters in float32 and casts
+each Conv, Dense and attention weight to the compute dtype at the call, as
+Flax's ``param_dtype=float32, dtype=bfloat16`` does; BatchNorm then
+normalises by the batch's statistics and updates its running ones with
+Flax's momentum.  In training every op is a differentiable torch op: the
+CPU paths in XLA:CPU's order above serve inference only.  Every module
+starts in inference mode.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
+    "make_divisible",
     "hard_sigmoid",
     "hard_swish",
     "mean_f32",
@@ -53,8 +63,21 @@ __all__ = [
     "depth_to_space",
     "upsample_nearest",
     "cast_compute",
+    "set_compute_dtype",
+    "ComputeModel",
     "full_float32",
 ]
+
+
+def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> int:
+    """Round channel counts to a multiple of ``divisor`` (MobileNet rule,
+    common.py:27-34)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 def _const(v: float, like: torch.Tensor) -> float:
@@ -92,6 +115,7 @@ def mean_f32(x: torch.Tensor, dim) -> torch.Tensor:
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
     "hardswish": hard_swish,
     "gelu": gelu_tanh,
     "none": lambda x: x,
@@ -185,28 +209,85 @@ def _conv_f32_cpu(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
     return None if out is None else torch.from_numpy(out).permute(0, 3, 1, 2)
 
 
+# XLA:CPU runs a depthwise conv (HLO ``convolution`` with
+# ``feature_group_count == C``) as one Eigen contraction per channel of its
+# (kh, kw) taps, and sums the taps' products in this fixed tree at every
+# shape measured: read by cancelling pairs of taps (a huge weight and its
+# negative, every other tap 1) and confirmed on random bf16 data
+# (tools/cpu_parity_probe.py dw).  Leaves index taps in (kh, kw) order.
+_DW_TREES = {
+    9: ((((0, 1), (4, 5)), ((2, 3), (6, 7))), 8),
+    25: (((((((0, 8), (1, 9)), ((4, 12), (5, 13))),
+            (((2, 10), (3, 11)), ((6, 14), (7, 15)))),
+           (((16, 17), (20, 21)), ((18, 19), (22, 23))))), 24),
+}
+
+
+def _tree_sum(terms: list[torch.Tensor], node) -> torch.Tensor:
+    if isinstance(node, int):
+        return terms[node]
+    return _tree_sum(terms, node[0]) + _tree_sum(terms, node[1])
+
+
+def _depthwise_f32_cpu(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
+                       pads: tuple[int, int, int, int]) -> torch.Tensor | None:
+    """float32 depthwise conv of NCHW ``x`` ([C, 1, kh, kw] weights) summed
+    in XLA:CPU's tree (:data:`_DW_TREES`), or None for a kernel size
+    without one.  The products of compute-dtype values are exact in
+    float32, so only the tree decides the bits."""
+    kh, kw = w.shape[2:]
+    tree = _DW_TREES.get(kh * kw)
+    if tree is None:
+        return None
+    x = F.pad(x, (pads[2], pads[3], pads[0], pads[1]))
+    oh = (x.shape[2] - kh) // stride[0] + 1
+    ow = (x.shape[3] - kw) // stride[1] + 1
+    terms = [x[:, :, i:i + stride[0] * (oh - 1) + 1:stride[0],
+               j:j + stride[1] * (ow - 1) + 1:stride[1]] * w[:, 0, i, j][:, None, None]
+             for i in range(kh) for j in range(kw)]
+    return _tree_sum(terms, tree)
+
+
+def _compute_params(m: nn.Module) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``m``'s weight and bias in its compute dtype: cast at the call from
+    float32 master weights (differentiable), unchanged once
+    :func:`cast_compute` has cast them."""
+    dt = m.compute_dtype or m.weight.dtype
+    b = None if m.bias is None else m.bias.to(dt)
+    return m.weight.to(dt), b
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv(padding="SAME")`` in NCHW: input and parameters are cast to
-    the parameter dtype (the compute dtype once the model is cast).  With
+    the compute dtype (``compute_dtype``, else the parameter dtype).  With
     ``f32_out`` the conv runs in float32 on those cast values and returns
     float32 (no rounding of the result to the compute dtype)."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel=1, stride=1, groups: int = 1,
                  bias: bool = True):
         super().__init__(in_ch, out_ch, _pair(kernel), _pair(stride), padding=0,
                          groups=groups, bias=bias)
+        self.training = False
 
     def forward(self, x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         ph = _same_pads(x.shape[2], kh, sh)
         pw = _same_pads(x.shape[3], kw, sw)
-        x, w, b = x.to(self.weight.dtype), self.weight, self.bias
-        # on the CPU a dense bf16 conv sums in XLA:CPU's order; a conv over a
-        # 1 x 1 map with a bias (the SE gate) is left to oneDNN, as the
-        # rewrite into XLA's order did not match XLA there
-        if w.dtype != torch.float32 and not x.is_cuda and self.groups == 1 and (
+        w, b = _compute_params(self)
+        x = x.to(w.dtype)
+        # in inference on the CPU a bf16 conv sums in XLA:CPU's order, dense
+        # or depthwise; a conv over a 1 x 1 map with a bias (the SE gate) is
+        # left to oneDNN, as the rewrite into XLA's order did not match XLA
+        # there
+        if w.dtype != torch.float32 and not x.is_cuda and not self.training and (
                 b is None or x.shape[2] * x.shape[3] > 1):
-            y = _conv_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
+            y = None
+            if self.groups == 1:
+                y = _conv_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
+            elif self.groups == self.in_channels == self.out_channels:
+                y = _depthwise_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
             if y is not None:
                 if f32_out:
                     return y
@@ -225,34 +306,56 @@ class Conv(nn.Conv2d):
 
 
 class Dense(nn.Linear):
-    """``nn.Dense``: input cast to the parameter dtype; the product rounds to
+    """``nn.Dense``: input cast to the compute dtype; the product rounds to
     that dtype before the bias add, which rounds again (two ops in Flax, not
     a fused bias).  With ``f32_out`` the bias add's float32 sum is returned
     unrounded."""
 
+    compute_dtype: torch.dtype | None = None
+
     def forward(self, x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
-        y = F.linear(x.to(self.weight.dtype), self.weight)
+        w, b = _compute_params(self)
+        y = F.linear(x.to(w.dtype), w)
         if f32_out:
-            return y.float() + self.bias.float()
-        return y + self.bias
+            return y.float() + b.float()
+        return y + b
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with Flax's arithmetic (flax ``_normalize``):
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast back
-    to the input dtype.  eps 1e-5 (common.py:81-83).  On the CPU it takes
-    XLA:CPU's steps (``native`` ``rsqrt_xla``, the multiply and the add
-    fused); on CUDA, ``torch.rsqrt`` and two roundings."""
+    """BatchNorm with Flax's arithmetic (flax ``_normalize``): ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in float32, cast back to the input
+    dtype.  momentum 0.9, eps 1e-5 (common.py:81-83).
 
-    def __init__(self, ch: int, eps: float = 1e-5):
+    Inference normalises by the running statistics; on the CPU it takes
+    XLA:CPU's steps (``native`` ``rsqrt_xla``, the multiply and the add
+    fused), on CUDA ``torch.rsqrt`` and two roundings.  Training normalises
+    by the batch's float32 statistics over (N, H, W) in flax's fast-variance
+    form, ``var = max(0, E[x^2] - E[x]^2)`` (``_compute_stats``), and
+    updates ``ra = momentum * ra + (1 - momentum) * batch`` with that biased
+    variance (``F.batch_norm`` would update with the unbiased one)."""
+
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.training = False
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+                self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+            mul = torch.rsqrt(var + self.eps) * self.weight.float()
+            y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+            return y.to(x.dtype)
         var = self.running_var.float() + self.eps
         d = x.float() - self.running_mean.float()[:, None, None]
         if not x.is_cuda:
@@ -277,6 +380,7 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
+        self.training = False
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -298,8 +402,9 @@ class ConvBNAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.BatchNorm_0(self.Conv_0(x, f32_out=True))
-        return ACTIVATIONS[self.act](y.to(self.Conv_0.weight.dtype))
+        conv = self.Conv_0
+        y = self.BatchNorm_0(conv(x, f32_out=True))
+        return ACTIVATIONS[self.act](y.to(conv.compute_dtype or conv.weight.dtype))
 
 
 class SEModule(nn.Module):
@@ -343,14 +448,56 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
 
 
-def cast_compute(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
-    """Cast the parameters of every Conv, Dense and attention projection to
-    the compute dtype (Flax casts them per call; casting once is the same
-    arithmetic).  BatchNorm and LayerNorm keep float32 parameters."""
-    if dtype is None or dtype == torch.float32:
-        return module
+def _cast_sites(module: nn.Module) -> Iterator[nn.Module]:
+    """Every Conv, Dense and attention projection under ``module``."""
     for m in module.modules():
         if isinstance(m, (Conv, Dense)) or getattr(m, "compute_cast", False):
-            for p in m.parameters(recurse=False):
-                p.data = p.data.to(dtype)
+            yield m
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """Make every Conv, Dense and attention projection under ``module``
+    compute in ``dtype`` (None: float32) from float32 parameters, casting
+    its weight at each call (the model classes call this on themselves)."""
+    for m in _cast_sites(module):
+        m.compute_dtype = dtype
     return module
+
+
+def cast_compute(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """Cast the parameters of every Conv, Dense and attention projection to
+    the compute dtype, for inference (Flax casts them per call; casting
+    once is the same arithmetic).  BatchNorm and LayerNorm keep float32
+    parameters.  A cast model refuses ``train()``: it would train bf16
+    weights (``ComputeModel.train``)."""
+    if dtype is None or dtype == torch.float32:
+        return module
+    for m in _cast_sites(module):
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return module
+
+
+class ComputeModel(nn.Module):
+    """Base of the model classes: float32 parameters computing in ``dtype``
+    (None: float32).  A subclass builds its layers, then calls
+    :meth:`finish_init`, which hands ``dtype`` to every Conv, Dense and
+    attention projection and leaves the model in inference mode."""
+
+    def __init__(self, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.compute_dtype = dtype
+
+    def finish_init(self) -> None:
+        set_compute_dtype(self, self.compute_dtype)
+        self.train(False)
+
+    def train(self, mode: bool = True) -> "ComputeModel":
+        """Training keeps float32 master weights: a model whose parameters
+        :func:`cast_compute` has cast raises."""
+        if mode and any(p.dtype != torch.float32 for m in _cast_sites(self)
+                        for p in m.parameters(recurse=False)):
+            raise RuntimeError(
+                f"{type(self).__name__} was cast to its compute dtype for inference "
+                "(cast_compute) and cannot train: build it again with float32 parameters")
+        return super().train(mode)

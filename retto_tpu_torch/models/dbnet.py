@@ -1,9 +1,12 @@
-"""DBNet text detector, ``backbone="tpu_v2"`` path (PyTorch).
+"""DBNet text detector (PyTorch).
 
-Port of ``retto_tpu/models/dbnet.py``: ``TpuBackboneV2`` (:137-167),
-``ConcatFPN`` (:170-195), ``DBHeadV2`` (:198-221) and ``DetModel``
-(:290-366) in inference mode.  The ``tpu`` and ``mobilenetv3`` backbones
-and the train-mode DB maps are not ported yet (``build_det`` raises).
+Port of ``retto_tpu/models/dbnet.py``: the three backbones ``TpuBackbone``
+(:101-125), ``TpuBackboneV2`` (:137-167) and MobileNetV3-large
+(``models.mobilenetv3``), the necks ``DBFPN`` (:224-254) and ``ConcatFPN``
+(:170-195), the heads ``DBHead`` (:257-279) and ``DBHeadV2`` (:198-221),
+and ``DetModel`` (:290-366).  In training (``model.train()``) ``forward``
+returns the DB maps ``{"maps", "thresh", "binary"}`` at the head's stride:
+the threshold comes from a second head, ``binary = sigmoid(50 (P - T))``.
 
 The model computes in NCHW.  ``nhwc=True`` takes the JAX package's NHWC
 input straight from the fused pipeline; every output is NCHW, as in the
@@ -23,11 +26,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv, ConvBNAct, depth_to_space, space_to_depth, upsample_nearest
+from .common import (
+    ComputeModel,
+    Conv,
+    ConvBNAct,
+    depth_to_space,
+    space_to_depth,
+    upsample_nearest,
+)
+from .mobilenetv3 import LARGE_CFG, MobileNetV3
 
 __all__ = [
-    "ConcatFPN", "DBHeadV2", "DetModel", "TpuBackboneV2", "exp_xla", "sigmoid_xla",
-    "upsample_linear",
+    "ConcatFPN", "DBFPN", "DBHead", "DBHeadV2", "DetModel", "TpuBackbone",
+    "TpuBackboneV2", "exp_xla", "sigmoid_xla", "upsample_linear",
 ]
 
 
@@ -123,13 +134,16 @@ class TpuResBlock(nn.Module):
 class TpuBackboneV2(nn.Module):
     """8x8 space-to-depth stem, then stages at strides 8/16/32, each a
     ConvBNAct (stride 1 on the stem, else 2) and ``depths[i]`` residual
-    blocks (dbnet.py:137-167)."""
+    blocks (dbnet.py:137-167).  ``TpuBackbone`` is the same with a 4x4 stem
+    and four stages at strides 4/8/16/32 (dbnet.py:101-125)."""
+
+    block = 8
 
     def __init__(self, widths: Sequence[int] = (128, 256, 384),
                  depths: Sequence[int] = (1, 1, 1)):
         super().__init__()
         self.stages: list[list[str]] = []
-        c, k = 3 * 64, 0  # RGB after the 8x8 space-to-depth
+        c, k = 3 * self.block * self.block, 0  # RGB after the space-to-depth
         for i, (w, d) in enumerate(zip(widths, depths)):
             names = [f"ConvBNAct_{i}"]
             setattr(self, names[0], ConvBNAct(c, w, 3, 1 if i == 0 else 2, act="relu"))
@@ -141,13 +155,24 @@ class TpuBackboneV2(nn.Module):
             c = w
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = space_to_depth(x, 8)
+        x = space_to_depth(x, self.block)
         feats = []
         for names in self.stages:
             for name in names:
                 x = getattr(self, name)(x)
             feats.append(x)
-        return feats  # strides 8, 16, 32
+        return feats
+
+
+class TpuBackbone(TpuBackboneV2):
+    """Dense-conv backbone: 4x4 space-to-depth stem, strides 4/8/16/32
+    (dbnet.py:101-125)."""
+
+    block = 4
+
+    def __init__(self, widths: Sequence[int] = (64, 128, 192, 256),
+                 depths: Sequence[int] = (1, 2, 2, 2)):
+        super().__init__(widths, depths)
 
 
 class ConcatFPN(nn.Module):
@@ -187,48 +212,115 @@ class DBHeadV2(nn.Module):
             logit = depth_to_space(logit, self.factor)
         if return_logits:
             return logit
-        return sigmoid_xla(logit)
+        return torch.sigmoid(logit.float()) if self.training else sigmoid_xla(logit)
 
 
-class DetModel(nn.Module):
-    """Full DBNet (inference).  ``forward`` returns the [N, 1, H, W] prob map
+class DBFPN(nn.Module):
+    """Top-down FPN with concat fuse (dbnet.py:224-254): 1x1 laterals to
+    ``inner_ch``, nearest top-down adds, a 3x3 conv per level to ``out_ch``,
+    all brought to stride 4 and concatenated."""
+
+    def __init__(self, in_chs: Sequence[int], inner_ch: int = 96, out_ch: int = 24):
+        super().__init__()
+        for i, c in enumerate(in_chs):
+            setattr(self, f"Conv_{i}", Conv(c, inner_ch, 1, bias=False))
+        for i in range(4):
+            setattr(self, f"Conv_{4 + i}", Conv(inner_ch, out_ch, 3, bias=False))
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        ins = [getattr(self, f"Conv_{i}")(f) for i, f in enumerate(feats)]
+        p5 = ins[3]
+        p4 = ins[2] + upsample_nearest(p5, 2)
+        p3 = ins[1] + upsample_nearest(p4, 2)
+        p2 = ins[0] + upsample_nearest(p3, 2)
+        outs = [getattr(self, f"Conv_{4 + i}")(p) for i, p in enumerate((p2, p3, p4, p5))]
+        return torch.cat([upsample_nearest(o, 1 << i) for i, o in enumerate(outs)], dim=1)
+
+
+class DBHead(nn.Module):
+    """3x3 ConvBNAct and a 1x1 to one logit channel at stride 4, the logits
+    upsampled bilinearly to ``out_stride`` (dbnet.py:257-279)."""
+
+    def __init__(self, in_ch: int, mid_ch: int = 64, out_stride: int = 2):
+        super().__init__()
+        self.factor = 4 // out_stride
+        self.ConvBNAct_0 = ConvBNAct(in_ch, mid_ch, 3, 1, act="relu")
+        self.Conv_0 = Conv(mid_ch, 1, 1)
+
+    def forward(self, x: torch.Tensor, return_logits: bool = False) -> torch.Tensor:
+        logit = self.Conv_0(self.ConvBNAct_0(x))
+        if self.factor > 1:  # _upsample_bilinear (dbnet.py:65-71)
+            logit = upsample_linear(logit, self.factor).to(logit.dtype)
+        if return_logits:
+            return logit
+        return torch.sigmoid(logit.float()) if self.training else sigmoid_xla(logit)
+
+
+class DetModel(ComputeModel):
+    """Full DBNet.  In inference ``forward`` returns the [N, 1, H, W] prob map
     (f32, upsampled from the stride-``out_stride`` head, the engine
     contract); ``raw_logits=True`` returns the stride-s LOGITS in the
-    compute dtype, which the fused pipeline thresholds in logit space
-    (dbnet.py:340-348).
+    compute dtype, which the fused pipeline thresholds in logit space (dbnet.py:340-348).  In training it returns
+    the dict of stride-s DB maps (dbnet.py:361-366).
 
-    ``DBHeadV2_1`` is the train-time threshold head: trained checkpoints
-    carry it, so the module holds it and inference never runs it."""
+    The second head (``DBHeadV2_1`` / ``DBHead_1``) is the threshold head:
+    the module always holds it, and inference never runs it.  A checkpoint
+    of a Flax model initialised for inference lacks it, so loading leaves
+    it at its initial values (``optional_state``)."""
 
-    def __init__(self, backbone: str = "tpu",
+    optional_state = ("DBHead_1.", "DBHeadV2_1.")
+
+    def __init__(self, backbone: str = "tpu", backbone_scale: float = 0.5,
                  widths: Sequence[int] = (64, 128, 192, 256),
                  depths: Sequence[int] = (1, 2, 2, 2), inner_ch: int = 96,
                  head_ch: int = 64, out_stride: int = 2,
                  dtype: torch.dtype | None = None):
-        super().__init__()
-        if backbone != "tpu_v2":
-            raise NotImplementedError(
-                f"det backbone {backbone!r} is not ported yet (only 'tpu_v2')"
-            )
+        super().__init__(dtype)
         self.backbone = backbone
         self.out_stride = out_stride
-        self.compute_dtype = dtype
-        self.TpuBackboneV2_0 = TpuBackboneV2(widths, depths)
-        self.ConcatFPN_0 = ConcatFPN(widths, inner_ch)
-        fused_ch = inner_ch * len(widths)
-        self.DBHeadV2_0 = DBHeadV2(fused_ch, head_ch, out_stride)
-        self.DBHeadV2_1 = DBHeadV2(fused_ch, head_ch, out_stride)
+        if backbone == "tpu_v2":
+            self.TpuBackboneV2_0 = TpuBackboneV2(widths, depths)
+            self.ConcatFPN_0 = ConcatFPN(widths, inner_ch)
+            fused_ch = inner_ch * len(widths)
+            self.heads = ("DBHeadV2_0", "DBHeadV2_1")
+            for name in self.heads:
+                setattr(self, name, DBHeadV2(fused_ch, head_ch, out_stride))
+        else:
+            if backbone == "tpu":
+                self.TpuBackbone_0 = TpuBackbone(widths, depths)
+                chs = tuple(widths)
+            elif backbone == "mobilenetv3":
+                self.MobileNetV3_0 = MobileNetV3(LARGE_CFG, backbone_scale, last_ch=960,
+                                                 feature_strides=(4, 8, 16, 32))
+                chs = self.MobileNetV3_0.feature_channels
+            else:
+                raise ValueError(f"unknown det backbone {backbone!r}")
+            self.DBFPN_0 = DBFPN(chs, inner_ch, inner_ch // 4)
+            self.heads = ("DBHead_0", "DBHead_1")
+            for name in self.heads:
+                setattr(self, name, DBHead(inner_ch, head_ch, out_stride))
+        self.finish_init()
 
-    def forward(self, x: torch.Tensor, nhwc: bool = False,
-                raw_logits: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nhwc: bool = False, raw_logits: bool = False):
         if nhwc:
             x = x.permute(0, 3, 1, 2)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        fused = self.ConcatFPN_0(self.TpuBackboneV2_0(x))
-        if raw_logits:
-            return self.DBHeadV2_0(fused, return_logits=True)
-        prob = self.DBHeadV2_0(fused)
-        if self.out_stride > 1:
-            prob = upsample_linear(prob, self.out_stride)
-        return prob
+        if self.backbone == "tpu_v2":
+            fused = self.ConcatFPN_0(self.TpuBackboneV2_0(x))
+        elif self.backbone == "tpu":
+            fused = self.DBFPN_0(self.TpuBackbone_0(x))
+        else:
+            fused = self.DBFPN_0(self.MobileNetV3_0(x))
+        head, thresh_head = (getattr(self, name) for name in self.heads)
+        if raw_logits and not self.training:
+            return head(fused, return_logits=True)
+        prob = head(fused)
+        if not self.training:
+            if self.out_stride > 1:
+                prob = upsample_linear(prob, self.out_stride)
+            return prob
+        thresh = thresh_head(fused)
+        # differentiable binarization: B = sigmoid(k (P - T)), k = 50
+        return {"maps": prob, "thresh": thresh,
+                "binary": torch.sigmoid(50.0 * (prob - thresh))}

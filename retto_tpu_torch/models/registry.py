@@ -2,8 +2,10 @@
 
 ``MODEL_PRESETS`` is a copy of ``retto_tpu/models/registry.py:19-57``
 (tests/test_torch_weights.py holds it equal to the JAX dict).  The builders
-return float32 modules on the CPU; ``pipeline.session`` loads a checkpoint
-into them, casts them to the compute dtype and moves them to the device.
+return modules with float32 parameters on the CPU, in inference mode, that
+compute in ``compute_dtype``: ``pipeline.session`` loads a checkpoint into
+them, casts them to the compute dtype and moves them to the device;
+``train.trainer`` trains them as they are.
 """
 
 from __future__ import annotations

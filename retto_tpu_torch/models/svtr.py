@@ -19,7 +19,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ACTIVATIONS, ConvBNAct, Dense, LayerNorm, SEModule, mean_f32
+from .common import (
+    ACTIVATIONS,
+    ComputeModel,
+    ConvBNAct,
+    Dense,
+    LayerNorm,
+    SEModule,
+    mean_f32,
+)
 
 __all__ = ["DSConv", "LCNetBackbone", "MultiHeadDotProductAttention", "SVTRBlock",
            "RecModel"]
@@ -101,6 +109,7 @@ class MultiHeadDotProductAttention(nn.Module):
     keys, as in flax's ``dot_product_attention``."""
 
     compute_cast = True  # models.common.cast_compute casts in_proj too
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -109,18 +118,22 @@ class MultiHeadDotProductAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = Dense(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.training = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, d = x.shape
         h = self.num_heads
         dh = d // h
+        dt = self.compute_dtype or self.in_proj_weight.dtype
         # the product rounds before the bias add, as in Flax's DenseGeneral
-        qkv = F.linear(x.to(self.in_proj_weight.dtype), self.in_proj_weight) + self.in_proj_bias
+        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt)) + self.in_proj_bias.to(dt)
         q, k, v = (z.reshape(n, t, h, dh) for z in qkv.split(d, dim=-1))
-        return self.out_proj(self.attend(q, k, v).reshape(n, t, d))
+        return self.out_proj(self.attend(q, k, v, fixed_order=not self.training)
+                             .reshape(n, t, d))
 
     @staticmethod
-    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               fixed_order: bool = True) -> torch.Tensor:
         """[N, T, H, Dh] q, k, v -> [N, T, H, Dh]: flax's
         ``dot_product_attention`` as XLA:CPU compiles it.  The query is
         multiplied by float32(1 / sqrt(Dh) in the compute dtype) and
@@ -133,11 +146,12 @@ class MultiHeadDotProductAttention(nn.Module):
         count or on the kernel a library picks: the products term by term
         over Dh and over keys (products of compute-dtype values are exact
         in float32), the exps in XLA's windows (``_xla_row_sum``).  On the
-        card the products run on cuBLAS."""
+        card, and in training (``fixed_order=False``), the products run on
+        the BLAS."""
         dh = q.shape[-1]
         inv = 1.0 / float(torch.tensor(math.sqrt(dh), dtype=q.dtype))
         q = (q.float() * inv).to(q.dtype)
-        if q.is_cuda:
+        if q.is_cuda or not fixed_order:
             w = torch.einsum("nqhd,nkhd->nhqk", q, k)
             e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
             w = e.to(q.dtype) / e.sum(dim=-1, keepdim=True).to(q.dtype)
@@ -187,16 +201,16 @@ class SVTRBlock(nn.Module):
         return x32.to(dt), x32
 
 
-class RecModel(nn.Module):
-    """LCNet backbone -> SVTR mixer -> CTC head (svtr.py:109-134)."""
+class RecModel(ComputeModel):
+    """LCNet backbone -> SVTR mixer -> CTC head (svtr.py:109-134).
+    ``return_logits`` returns the float32 logits the CTC loss takes."""
 
     def __init__(self, num_classes: int = 6625,
                  dims: Sequence[int] = (64, 128, 256, 512),
                  depths: Sequence[int] = (2, 2, 2, 2), mixer_dim: int = 120,
                  mixer_depth: int = 2, num_heads: int = 8,
                  dtype: torch.dtype | None = None):
-        super().__init__()
-        self.compute_dtype = dtype
+        super().__init__(dtype)
         self.LCNetBackbone_0 = LCNetBackbone(dims, depths)
         self.Dense_0 = Dense(dims[-1], mixer_dim)
         self.mixer = [f"SVTRBlock_{i}" for i in range(mixer_depth)]
@@ -204,12 +218,15 @@ class RecModel(nn.Module):
             setattr(self, name, SVTRBlock(mixer_dim, num_heads))
         self.LayerNorm_0 = LayerNorm(mixer_dim)
         self.Dense_1 = Dense(mixer_dim, num_classes)
+        self.finish_init()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_logits: bool = False) -> torch.Tensor:
         feats = self.LCNetBackbone_0(x)
         seq32 = self.Dense_0(feats, f32_out=True)
         seq = seq32.to(feats.dtype)
         for name in self.mixer:
             seq, seq32 = getattr(self, name)(seq, seq32)
         logits = self.Dense_1(self.LayerNorm_0(seq32).to(seq.dtype), f32_out=True)
+        if return_logits:
+            return logits
         return torch.softmax(logits, dim=-1)

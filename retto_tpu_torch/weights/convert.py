@@ -17,7 +17,9 @@ BN/LN ``scale`` / ``bias``             ``weight`` / ``bias``
 ``batch_stats`` ``mean`` / ``var``     ``running_mean`` / ``running_var``
 =====================================  =====================================
 
-Converted weights live in memory only; nothing is written to disk.
+``export_flax_params`` is the inverse: a port module's state as Flax's flat
+``::`` names and layouts, which ``weights.store.save_params`` writes and
+the JAX package's ``load_params_meta`` reads.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch import nn
 
 from .store import SEP
 
-__all__ = ["convert_flax_params", "load_flax_params"]
+__all__ = ["convert_flax_params", "export_flax_params", "load_flax_params"]
 
 _QKV = ("query", "key", "value")
 
@@ -84,12 +86,55 @@ def convert_flax_params(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tenso
 
 def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:
     """Load a Flax checkpoint into ``module``; raises ``KeyError`` naming
-    every missing and every unused key (there must be none of either)."""
+    every missing and every unused key (there must be none of either, but
+    for the prefixes in the module's ``optional_state``)."""
     sd = convert_flax_params(flat)
     missing, unused = module.load_state_dict(sd, strict=False)
+    # state a checkpoint may lack (DetModel's train-time threshold head,
+    # absent from a Flax model initialised for inference)
+    optional = getattr(module, "optional_state", ())
+    missing = [k for k in missing if not k.startswith(optional)] if optional else missing
     if missing or unused:
         raise KeyError(
             f"{type(module).__name__}: missing keys {sorted(missing)}, "
             f"unused keys {sorted(unused)}"
         )
     return module
+
+
+def export_flax_params(module: nn.Module) -> dict[str, np.ndarray]:
+    """``module``'s parameters and running statistics as flat ``::``-keyed
+    Flax variables (float32): the inverse of :func:`convert_flax_params`."""
+    from ..models.common import BatchNorm, Conv, Dense, LayerNorm
+    from ..models.svtr import MultiHeadDotProductAttention
+
+    out: dict[str, np.ndarray] = {}
+
+    def put(col: str, path: str, leaf: str, t: torch.Tensor) -> None:
+        out[SEP.join([col, *path.split("."), leaf])] = t.detach().float().cpu().numpy()
+
+    for path, m in module.named_modules():
+        if isinstance(m, Conv):  # OIHW -> HWIO
+            put("params", path, "kernel", m.weight.permute(2, 3, 1, 0))
+        elif isinstance(m, Dense) and not path.endswith("out_proj"):
+            put("params", path, "kernel", m.weight.t())
+        elif isinstance(m, (BatchNorm, LayerNorm)):
+            put("params", path, "scale", m.weight)
+            if isinstance(m, BatchNorm):
+                put("batch_stats", path, "mean", m.running_mean)
+                put("batch_stats", path, "var", m.running_var)
+        elif isinstance(m, MultiHeadDotProductAttention):
+            d, h = m.in_proj_weight.shape[1], m.num_heads
+            for i, name in enumerate(_QKV):
+                w = m.in_proj_weight[i * d:(i + 1) * d]
+                put("params", f"{path}.{name}", "kernel", w.t().reshape(d, h, d // h))
+                put("params", f"{path}.{name}", "bias",
+                    m.in_proj_bias[i * d:(i + 1) * d].reshape(h, d // h))
+            put("params", f"{path}.out", "kernel", m.out_proj.weight.t().reshape(h, d // h, d))
+            put("params", f"{path}.out", "bias", m.out_proj.bias)
+            continue
+        else:
+            continue
+        if getattr(m, "bias", None) is not None:
+            put("params", path, "bias", m.bias)
+    return out

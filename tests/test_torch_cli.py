@@ -97,8 +97,11 @@ def test_not_ported_paths_exit_1_with_a_message(page_dir, tmp_path, capsys):
 
     assert main(["ocr", str(page_dir), "--device", "cpu", "--hf-hub"]) == 1
     assert "not ported" in capsys.readouterr().err
+    # every preset is ported now: tiny without weights runs on random ones
+    out = tmp_path / "tiny.jsonl"
     assert main(["ocr", str(page_dir), "--device", "cpu", "--preset", "tiny",
-                 "--weights-dir", str(tmp_path)]) == 1
-    assert "not ported" in capsys.readouterr().err
+                 "--weights-dir", str(tmp_path), "--json-out", str(out)]) == 0
+    assert "not ported" not in capsys.readouterr().err
+    assert len(out.read_text().splitlines()) == len(list(page_dir.glob("*.png")))
     assert main(["ocr", str(tmp_path), "--device", "cpu"]) == 1
     assert "no images" in capsys.readouterr().err

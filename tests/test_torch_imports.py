@@ -1,5 +1,6 @@
 """The port stands alone: no file of retto_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package retto_tpu; PIL is
+chip_smoke.py, imports jax, flax, optax, orbax or the JAX package
+retto_tpu; PIL is
 imported only inside functions (the card's machine need not have it), and
 chip_smoke.py imports neither PIL nor pytest."""
 
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "retto_tpu_torch").rglob("*.py"))
-BANNED = ("jax", "flax", "retto_tpu")
+BANNED = ("jax", "flax", "optax", "orbax", "retto_tpu")
 
 
 def _imports(tree: ast.AST):

@@ -8,10 +8,13 @@ Tolerances:
   bf16 step, which later layers carry on; the outputs are held to bounds
   measured with ~2x headroom: det logits 1.3% of max |logit| (measured
   0.64%), cls probabilities 1e-4 (4.2e-5), rec probabilities 6% (2.8%).
-  Since the CPU convs sum in XLA:CPU's order (``models.common``), the
-  measured values are 0.64%, 0 and 4.7%: the rec backbone's depthwise convs
-  still sum otherwise, and its 7,590 differing outputs (7,583 before) land
-  elsewhere.
+  Since the CPU convs, dense and depthwise, sum in XLA:CPU's order
+  (``models.common``), the measured values are 0.64%, 0 and 4.7%: the rec
+  backbone's SE gates and its final mean over the height still differ
+  (XLA:CPU takes both means over the last activation before its bf16
+  rounding and runs the SE's 1 x 1 convs as ``dot``s whose order depends
+  on the shapes, tools/cpu_parity_probe.py dw), and its depthwise convs,
+  now exact, did not move the bound.
 
 Each parity trap of the port is pinned by its own test: Flax SAME padding,
 the tanh GELU, LayerNorm eps 1e-6 and the linear resize."""

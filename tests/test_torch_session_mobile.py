@@ -6,7 +6,8 @@ Tolerances: box counts and cls labels equal; boxes within 2 px and det
 scores within 1e-5 (measured 0.00 px and 0.0 on all 35 lines of the 8
 fixture pages, both modes: the det matches Flax bit for bit on the CPU,
 tests/test_torch_det_parity.py); texts equal except one line that the CPU
-noise of the rec backbone's depthwise convs moves (ROADMAP Queue 3 item 3):
+noise of the rec backbone's SE gates and final mean moves (ROADMAP Queue 3
+item 3):
 page 0 reads ``'eplyr:#s('`` where JAX reads ``'ep1lyr:#s('``; rec scores
 of the agreeing lines within 0.03 (measured 0.018 over the 8 pages)."""
 

@@ -1,7 +1,7 @@
 """Where the port's bf16 models still differ from XLA:CPU's Flax models, and
 why: the measurements behind ROADMAP Queue 3 items 2 and 3.
 
-    JAX_PLATFORMS=cpu python tools/cpu_parity_probe.py [rec] [det]
+    JAX_PLATFORMS=cpu python tools/cpu_parity_probe.py [rec] [det] [dw]
 
 Runs on the CPU and compares the JAX package with the port (a diagnostic
 beside the tests, which is why it imports both).  Prints one JSON line per
@@ -28,6 +28,26 @@ part:
   where the conv is an HLO ``convolution`` run by the runtime and the
   rsqrt is ``rsqrtps`` plus two Newton steps), and every layer reads 0;
   ``RETTO_NATIVE=0`` gives oneDNN's order and ``torch.rsqrt`` again.
+* ``dw``: the tree in which XLA:CPU sums a depthwise conv's (kh, kw) taps,
+  read by cancelling each pair of taps (weights 2**30 and -2**30, every
+  other tap 1, input 1: an output then counts the taps outside the
+  smallest subtree that holds both) and held to ``models.common.
+  _DW_TREES``; the port's depthwise conv against XLA on random bf16 data;
+  and the order of the SE gate's 1 x 1 convs, which XLA:CPU runs as
+  ``dot``s: for each [M, K] x [K, N] of the mobile rec, whether a
+  sequential sum over K or four interleaved partial sums over K (combined
+  as (0 + 1) + (2 + 3)) reproduces XLA.  Then the witness for the SE
+  gates: the mobile rec on the ``rec`` part's noise and on four rendered
+  lines of ``testdata/smoke_train.npz``, with every SEModule of the port's LCNet
+  given the Flax model's own ``Conv_1`` output (the gate's pre-activation)
+  in place of its own mean and 1 x 1 convs: the LCNet features that then
+  differ from Flax's, against those that differ without the substitution;
+  each LCNet layer fed the Flax model's own input to it (the layers whose
+  outputs differ); and the final mean over the height fed Flax's last
+  block output, against the Flax model's features and against a
+  standalone jitted ``jnp.mean`` of the same block output; and, with
+  Flax's gates, the features when the final mean is taken over the last
+  activation before its bf16 rounding, as the compiled model's HLO does.
 """
 
 from __future__ import annotations
@@ -50,7 +70,9 @@ from retto_tpu.models import build_det as j_det, build_rec as j_rec  # noqa: E40
 from retto_tpu.models.common import ConvBNAct as JConvBNAct  # noqa: E402
 from retto_tpu.weights import load_params_meta as j_load  # noqa: E402
 from retto_tpu_torch.models import build_det, build_rec  # noqa: E402
-from retto_tpu_torch.models.common import ACTIVATIONS, LayerNorm, _same_pads, cast_compute  # noqa: E402
+from retto_tpu_torch.models.common import (  # noqa: E402
+    ACTIVATIONS, LayerNorm, SEModule, _same_pads, cast_compute, hard_sigmoid, mean_f32,
+)
 from retto_tpu_torch.models.svtr import _xla_row_sum  # noqa: E402
 from retto_tpu_torch.weights import load_flax_params, load_params_meta  # noqa: E402
 
@@ -237,10 +259,170 @@ def det_part() -> dict:
     return out
 
 
+def _tree_lca_sizes(tree, k: int) -> np.ndarray:
+    """For every pair of leaves, the number of leaves of their smallest
+    common subtree."""
+    sizes = np.zeros((k, k), int)
+
+    def walk(node) -> list[int]:
+        if isinstance(node, int):
+            return [node]
+        left, right = walk(node[0]), walk(node[1])
+        for a in left:
+            for b in right:
+                sizes[a, b] = sizes[b, a] = len(left) + len(right)
+        return left + right
+
+    walk(tree)
+    return sizes
+
+
+def dw_part() -> dict:
+    import itertools
+
+    from retto_tpu_torch.models.common import _DW_TREES, _depthwise_f32_cpu
+
+    out = {"part": "dw", "trees": {}, "random": [], "se_dot": []}
+    for kk in (3, 5):
+        k, c = kk * kk, 16
+        pads = _same_pads(12, kk, 1)
+        fn = jax.jit(lambda x, w: jax.lax.conv_general_dilated(
+            x, w, (1, 1), [pads, _same_pads(16, kk, 1)],
+            dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=c))
+        x = np.ones((2, 12, 16, c), np.float32)
+        sizes = np.zeros((k, k), int)
+        for a, b in itertools.combinations(range(k), 2):
+            w = np.ones((kk, kk, 1, c), np.float32)
+            w.reshape(k, c)[a], w.reshape(k, c)[b] = 2.0 ** 30, -(2.0 ** 30)
+            y = np.asarray(fn(x, w))[:, kk // 2:-(kk // 2), kk // 2:-(kk // 2)]
+            sizes[a, b] = sizes[b, a] = k - int(y.min())
+        out["trees"][f"{kk}x{kk}"] = bool((sizes == _tree_lca_sizes(_DW_TREES[k], k)).all())
+    rng = np.random.default_rng(0)
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    for (n, h, w_, c, kk, s) in [(2, 24, 160, 32, 3, (2, 2)), (2, 6, 40, 128, 3, (2, 1)),
+                                 (3, 16, 16, 72, 5, (2, 2))]:
+        x, w = bf(rng.normal(size=(n, h, w_, c))), bf(rng.normal(size=(kk, kk, 1, c)))
+        ph, pw = _same_pads(h, kk, s[0]), _same_pads(w_, kk, s[1])
+        ref = np.asarray(jax.jit(lambda x, w: jax.lax.conv_general_dilated(
+            x, w, s, [ph, pw], dimension_numbers=("NHWC", "HWIO", "NHWC"),
+            feature_group_count=c))(x, w))
+        got = _depthwise_f32_cpu(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                 torch.from_numpy(w).permute(3, 2, 0, 1), s, (*ph, *pw))
+        out["random"].append({"nhwc": [n, h, w_, c], "kernel": kk, "stride": list(s),
+                              "differing": int((got.permute(0, 2, 3, 1).numpy() != ref).sum())})
+    dot = jax.jit(jnp.dot)
+    for m, k, nn_ in [(2, 64, 16), (2, 128, 32), (2, 256, 64), (2, 512, 128), (16, 512, 128),
+                      (40, 512, 128)]:
+        a, w = bf(rng.normal(size=(m, k))), bf(rng.normal(size=(k, nn_)))
+        ref = np.asarray(dot(a, w))
+        seq = np.zeros((m, nn_), np.float32)
+        lanes = [np.zeros((m, nn_), np.float32) for _ in range(4)]
+        for i in range(k):
+            seq = seq + a[:, i:i + 1] * w[i]
+            lanes[i % 4] = lanes[i % 4] + a[:, i:i + 1] * w[i]
+        four = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+        out["se_dot"].append({"mkn": [m, k, nn_], "sequential_differing": int((seq != ref).sum()),
+                              "four_lanes_differing": int((four != ref).sum()),
+                              "of": int(ref.size)})
+    out["se_gate_witness"] = _se_gate_witness()
+    return out
+
+
+def _lcnet_unrounded_mean(backbone, x: torch.Tensor) -> torch.Tensor:
+    """The port's LCNet with its final mean over the height taken as the
+    compiled Flax model takes it (read from its optimized HLO): over the
+    last hardswish's float32 product ``bf16(y * clip(y + 3, 0, 6)) *
+    float32(1/6)``, before that product's rounding to bf16."""
+    x = backbone.ConvBNAct_0(x)
+    for name in backbone.blocks[:-1]:
+        x = getattr(backbone, name)(x)
+    blk = getattr(backbone, backbone.blocks[-1])
+    x = blk.ConvBNAct_0(x)
+    if blk.use_se:
+        x = blk.SEModule_0(x)
+    cba = blk.ConvBNAct_1
+    y = cba.BatchNorm_0(cba.Conv_0(x, f32_out=True)).to(torch.bfloat16)
+    act = (y * torch.clamp(y + 3.0, 0.0, 6.0)).float() * (1.0 / 6.0)
+    return mean_f32(act, 2).squeeze(2).to(torch.bfloat16).transpose(1, 2)
+
+
+def _se_gate_witness() -> list[dict]:
+    """The port's LCNet features against Flax's, as they are and with each
+    SEModule fed Flax's gate pre-activation; then each LCNet layer fed the
+    Flax model's own input to it, and the final mean over the height fed
+    Flax's last block output, against the Flax model and against a
+    standalone jitted ``jnp.mean``."""
+    jm, tree, tm = _models("rec", j_rec, build_rec)
+    lines = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_train.npz")["rec_lines"][:4]
+    lines = lines[:, ::-1, ::-1].transpose(0, 3, 1, 2)  # upright, NCHW
+    inputs = {"noise [2, 3, 48, 320]":
+              np.random.default_rng(0).uniform(-1, 1, (2, 3, 48, 320)).astype(np.float32),
+              "4 rendered lines [4, 3, 48, 512]":
+              np.ascontiguousarray((lines / 255.0 - 0.5) / 0.5, np.float32)}
+    res = []
+    for label, x in inputs.items():
+        _, state = jax.jit(lambda p, v: jm.apply(p, v, capture_intermediates=True))(
+            tree, jnp.asarray(x))
+        inter = state["intermediates"]["LCNetBackbone_0"]
+
+        def flax(node):
+            return np.array(node["__call__"][0].astype(jnp.float32))
+
+        def nchw(a):
+            return torch.from_numpy(a).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+        ref = flax(inter)
+        backbone = tm.LCNetBackbone_0
+        with torch.no_grad():
+            own = backbone(torch.from_numpy(x)).float().numpy()
+            gates = 0
+            for name, mod in backbone.named_modules():
+                if isinstance(mod, SEModule):
+                    node = inter
+                    for part in name.split("."):
+                        node = node[part]
+                    pre = nchw(flax(node["Conv_1"]))
+                    mod.forward = (lambda v, pre=pre: v * hard_sigmoid(pre))
+                    gates += 1
+            try:
+                fed = backbone(torch.from_numpy(x)).float().numpy()
+                fed_mean = _lcnet_unrounded_mean(backbone, torch.from_numpy(x)).float().numpy()
+            finally:
+                for mod in backbone.modules():
+                    if isinstance(mod, SEModule):
+                        del mod.forward
+            layers, prev = {}, flax(inter["ConvBNAct_0"])
+            for name in backbone.blocks:
+                blk, node = getattr(backbone, name), inter[name]
+                steps = [("dw", blk.ConvBNAct_0, "ConvBNAct_0")]
+                if blk.use_se:
+                    steps.append(("se", blk.SEModule_0, "SEModule_0"))
+                steps.append(("pw", blk.ConvBNAct_1, "ConvBNAct_1"))
+                for tag, mod, key in steps:
+                    got = mod(nchw(prev)).float().permute(0, 2, 3, 1).numpy()
+                    want = flax(node[key])
+                    n = int((got != want).sum())
+                    if n:
+                        layers[f"{name}.{tag}"] = f"{n} of {want.size}"
+                    prev = want
+            last = inter[backbone.blocks[-1]]["__call__"][0]
+            mean = mean_f32(nchw(np.array(last.astype(jnp.float32))), 2)
+            mean = mean.squeeze(2).to(torch.bfloat16).transpose(1, 2).float().numpy()
+            alone = np.array(jax.jit(lambda v: jnp.mean(v, axis=1))(last).astype(jnp.float32))
+        res.append({"input": label, "se_modules": gates, "of": int(ref.size),
+                    "features_differing": int((own != ref).sum()),
+                    "features_differing_with_flax_gates": int((fed != ref).sum()),
+                    "features_differing_with_flax_gates_and_unrounded_mean": int(
+                        (fed_mean != ref).sum()),
+                    "layers_fed_flax_inputs_differing": layers,
+                    "final_mean_fed_flax_block_differing": int((mean != ref).sum()),
+                    "final_mean_vs_standalone_jnp_mean_differing": int((mean != alone).sum())})
+    return res
+
 def main() -> None:
     parts = sys.argv[1:] or ["rec", "det"]
     for part in parts:
-        print(json.dumps({"rec": rec_part, "det": det_part}[part]()), flush=True)
+        print(json.dumps({"rec": rec_part, "det": det_part, "dw": dw_part}[part]()), flush=True)
 
 
 if __name__ == "__main__":

@@ -25,10 +25,38 @@ the JAX ``RettoSession.run`` (mobile checkpoints, CPU) in each mode, as
 the 8 gray pages (ids 0-7), the tinted page 0 (id 8) and the tinted and
 rotated page 2 (id 9).
 
-Run from the repository root (JAX on the CPU, a few minutes; ``--staged``
-writes only the staged file):
+``retto_tpu_torch/testdata/smoke_train.npz`` holds the training batches and
+the JAX trainer's losses on them (``--train``): from the shipped mobile
+``rec.npz``, ``cls.npz`` and ``det.npz`` with bf16 compute, a fixed batch
+per target from tools/train_synthetic.py's renderers (16 rec lines at
+48x512 as ``rec_lines``/``rec_widths``/``rec_labels``/``rec_lengths``; 16
+cls crops at 48x192 in both orientations with their rotations as
+``cls_lines``/``cls_widths``/``cls_rot``; 2 det pages at 512x512 with their
+boxes as ``det_pages``/``det_boxes``), and ``{rec,cls,det}_losses``: the
+losses of 4 steps with no augmentation under the tool's AdamW schedule for
+3 steps (``warmup_cosine_decay(0, lr, 1, 3)``, weight decay 1e-4, the
+tool's rates in ``{kind}_lr``).  The first and the fourth update run at
+rate 0, so loss 1 (= loss 2) is the shipped weights' and losses 3 and 4
+read the two real updates; ``{kind}_delta_norm`` is the L2 norm of the
+change of all parameters over the 4 steps.  The rec lines are turned 180
+degrees within their widths (the crops that the cls stage flips before
+the rec sees them): on its own upright lines the shipped rec's loss is
+8e-4, where bf16 roundoff moves it by several percent and decides the
+sign of many gradients; on the turned lines it is O(100) and the update
+is the gradient's, not the roundoff's.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--staged]
+``retto_tpu_torch/testdata/smoke_presets.npz`` holds the presets the port
+already has and checks nowhere else (``--presets``): ``server_*``, the JAX
+``DevicePipeline`` over the 8 gray pages with ``det_server.npz``,
+``rec_server.npz`` and ``cls.npz`` (flat as the ``jax_*`` entries); and
+``big_*``, the big-vocab rec alone (``rec_big.npz``, ``charset_big.txt``,
+6,625 classes) on 16 rendered big-vocab lines at 48x320 (``big_crops``,
+``big_widths``; ``big_gt`` the rendered texts, ``big_texts`` JAX's reading).
+
+Run from the repository root (JAX on the CPU, a few minutes; ``--staged``,
+``--train`` and ``--presets`` write only that file):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--staged|--train|--presets]
 """
 
 from __future__ import annotations
@@ -43,6 +71,9 @@ sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz"
 STAGED_OUT = OUT.with_name("smoke_staged.npz")
+TRAIN_OUT = OUT.with_name("smoke_train.npz")
+PRESETS_OUT = OUT.with_name("smoke_presets.npz")
+TRAIN_LR = {"rec": 1.2e-3, "cls": 1e-3, "det": 8e-4}  # tools/train_synthetic.py
 TINT = np.asarray([1.0, 0.94, 0.86], np.float32)
 ROTATE_DEG = 176.0
 
@@ -100,9 +131,169 @@ def write_staged(pages: np.ndarray) -> None:
     print(f"wrote {STAGED_OUT.relative_to(ROOT)} ({STAGED_OUT.stat().st_size} bytes)")
 
 
+def _jax_model(kind: str, name: str, **extra):
+    """A JAX model built from checkpoint ``name``'s self-description (bf16)
+    and its variables."""
+    from retto_tpu.models import build_cls, build_det, build_rec
+    from retto_tpu.weights import load_params_meta
+
+    tree, meta = load_params_meta(ROOT / "trained_weights" / name)
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["overrides"].items()}
+    build = {"det": build_det, "cls": build_cls, "rec": build_rec}[kind]
+    return build(meta["preset"], compute_dtype="bfloat16", **extra, **kw), tree
+
+
+def _jax_losses(model, tree, lr: float, batch_fn, loss_fn, apply=None):
+    """(losses, delta_norm): the losses of 4 steps on one batch under the
+    tool's AdamW schedule for 3 steps, and the L2 norm of the parameters'
+    change over them."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from retto_tpu.train.trainer import TrainState, make_train_step
+
+    tx = optax.adamw(optax.warmup_cosine_decay_schedule(0.0, lr, 1, 3), weight_decay=1e-4)
+    state = TrainState(tree["params"], tx.init(tree["params"]), tree["batch_stats"], 0)
+    step = make_train_step(apply or model, loss_fn, tx)
+    losses = []
+    for _ in range(4):
+        state, loss = step(state, *batch_fn())
+        losses.append(float(loss))
+    sq = jax.tree_util.tree_map(lambda a, b: jnp.sum(jnp.square(a - b)), state.params,
+                                tree["params"])
+    return (np.asarray(losses, np.float32),
+            np.float32(np.sqrt(sum(float(v) for v in jax.tree_util.tree_leaves(sq)))))
+
+
+def write_train() -> None:
+    import jax.numpy as jnp
+
+    from retto_tpu.train.data import (
+        ClsDeviceData, DetDeviceData, RecDeviceData, gather_cls_batch, gather_det_batch,
+        gather_rec_batch,
+    )
+    from retto_tpu.train.losses import ctc_loss, db_loss
+    from tools.train_synthetic import (
+        CHARS, _render_cls_lines, render_det_dataset, render_rec_dataset,
+    )
+
+    out = {}
+    rng = np.random.default_rng(100)
+    imgs, labels, lengths, _ = render_rec_dataset(rng, 16)
+    imgs = [np.ascontiguousarray(im[::-1, ::-1]) for im in imgs]
+    rd = RecDeviceData.build(imgs, labels, lengths, 512)
+    model, tree = _jax_model("rec", "rec.npz", num_classes=CHARS.num_classes)
+
+    def apply(variables, x, train=False, mutable=None):
+        return model.apply(variables, x, train=train, mutable=mutable, return_logits=True)
+
+    out.update(rec_lines=np.asarray(rd.lines), rec_widths=np.asarray(rd.widths),
+               rec_labels=np.asarray(rd.labels), rec_lengths=np.asarray(rd.lengths),
+               rec_losses=_jax_losses(model, tree, TRAIN_LR["rec"],
+                                      lambda: gather_rec_batch(rd, jnp.arange(16)),
+                                      ctc_loss, apply))
+    out["rec_losses"], out["rec_delta_norm"] = out["rec_losses"]
+
+    cd = ClsDeviceData.build(_render_cls_lines(rng, 16), 192)
+    rot = jnp.asarray(rng.integers(0, 2, 16))
+    model, tree = _jax_model("cls", "cls.npz")
+
+    def cls_batch():
+        x, lab = gather_cls_batch(cd, jnp.arange(16), rot)
+        x_opp, _ = gather_cls_batch(cd, jnp.arange(16), 1 - rot)
+        return jnp.concatenate([x, x_opp]), lab
+
+    def cls_sym_loss(probs, lab):  # tools/train_synthetic.py::_cls_fit
+        nb = lab.shape[0]
+        p1, p2 = probs[:nb], probs[nb:]
+        p_sym = 0.5 * (p1 + p2[:, ::-1])
+        eps, sm = 1e-8, 0.02
+        onehot = jnp.eye(2)[lab] * (1 - sm) + sm / 2
+        loss_sym = -(onehot * jnp.log(p_sym + eps)).sum(-1).mean()
+        loss_view = (-(onehot * jnp.log(p1 + eps)).sum(-1).mean()
+                     - (onehot[:, ::-1] * jnp.log(p2 + eps)).sum(-1).mean())
+        return loss_sym + 0.25 * loss_view
+
+    out.update(cls_lines=np.asarray(cd.lines), cls_widths=np.asarray(cd.widths),
+               cls_rot=np.asarray(rot, np.int32),
+               cls_losses=_jax_losses(model, tree, TRAIN_LR["cls"], cls_batch, cls_sym_loss))
+    out["cls_losses"], out["cls_delta_norm"] = out["cls_losses"]
+
+    pages, boxes = render_det_dataset(rng, 2)
+    dd = DetDeviceData.build(pages, boxes)
+    model, tree = _jax_model("det", "det.npz")
+    out.update(det_pages=np.asarray(dd.pages), det_boxes=np.asarray(dd.boxes),
+               det_losses=_jax_losses(
+                   model, tree, TRAIN_LR["det"],
+                   lambda: gather_det_batch(dd, jnp.arange(2), out_stride=model.out_stride),
+                   db_loss))
+    out["det_losses"], out["det_delta_norm"] = out["det_losses"]
+    for kind, lr in TRAIN_LR.items():
+        out[f"{kind}_lr"] = np.float32(lr)
+        print(f"train {kind}: losses {out[f'{kind}_losses'].tolist()}, "
+              f"delta norm {float(out[f'{kind}_delta_norm'])}")
+    np.savez_compressed(TRAIN_OUT, **out)
+    print(f"wrote {TRAIN_OUT.relative_to(ROOT)} ({TRAIN_OUT.stat().st_size} bytes)")
+
+
+def write_presets(pages: np.ndarray) -> None:
+    import jax.numpy as jnp
+    from PIL import Image
+
+    from retto_tpu.config import SessionConfig
+    from retto_tpu.ops.charset import CharacterDict
+    from retto_tpu.ops.ctc import ctc_greedy_decode
+    from retto_tpu.pipeline.session import RettoSession
+    from retto_tpu.train.bigvocab import BIG_NUM_KEYS, random_big_text, render_big_line
+
+    wd = ROOT / "trained_weights"
+    out = {}
+    chars = CharacterDict((wd / "charset.txt").read_text().splitlines())
+    weights = {"det": str(wd / "det_server.npz"), "cls": str(wd / "cls.npz"),
+               "rec": str(wd / "rec_server.npz")}
+    cfg = SessionConfig()
+    cfg.engine.transfer_format = "yuv420"
+    dp = RettoSession(cfg, preset="server", charset=chars, weights=weights).device_pipeline()
+    res = dp.run_many([np.repeat(p[..., None], 3, axis=2) for p in pages])
+    out["server_page"], out["server_boxes"], out["server_texts"] = _flat(res, range(len(pages)))
+    dp.close()
+    print(f"presets server: {len(out['server_texts'])} lines")
+
+    big = CharacterDict((wd / "charset_big.txt").read_text(encoding="utf-8").splitlines())
+    rng = np.random.default_rng(7)
+    crops = np.zeros((16, 48, 320, 3), np.uint8)
+    widths, gt = np.zeros(16, np.int32), []
+    for i in range(16):
+        ids, text = random_big_text(rng, BIG_NUM_KEYS, max_len=7)
+        line = render_big_line(ids, 48, rng)
+        w = min(line.shape[1], 320)
+        if line.shape[1] != w:
+            line = np.asarray(Image.fromarray(line).resize((w, 48), Image.BILINEAR))
+        crops[i, :, :w], widths[i] = line, w
+        gt.append(text)
+    x = (crops.astype(np.float32) / 255.0 - 0.5) / 0.5
+    x = np.where(np.arange(320)[None, None, :, None] < widths[:, None, None, None], x, 0.0)
+    model, tree = _jax_model("rec", "rec_big.npz", num_classes=big.num_classes)
+    probs = model.apply(tree, jnp.asarray(np.transpose(x, (0, 3, 1, 2))))
+    idx, keep, _ = ctc_greedy_decode(probs)
+    texts = big.decode_indices(np.asarray(idx), np.asarray(keep))
+    out.update(big_crops=crops, big_widths=widths, big_gt=np.asarray(gt, dtype=str),
+               big_texts=np.asarray(texts, dtype=str))
+    print(f"presets big-vocab rec: {sum(a == b for a, b in zip(texts, gt))}/16 lines read right")
+    np.savez_compressed(PRESETS_OUT, **out)
+    print(f"wrote {PRESETS_OUT.relative_to(ROOT)} ({PRESETS_OUT.stat().st_size} bytes)")
+
+
 def main() -> None:
     if "--staged" in sys.argv[1:]:
         write_staged(np.load(OUT)["pages"])
+        return
+    if "--train" in sys.argv[1:]:
+        write_train()
+        return
+    if "--presets" in sys.argv[1:]:
+        write_presets(np.load(OUT)["pages"])
         return
     from retto_tpu.config import SessionConfig
     from retto_tpu.ops.charset import CharacterDict
@@ -148,6 +339,8 @@ def main() -> None:
           f"{len(gt_texts)} gt lines, {len(out['jax_texts'])} JAX lines, "
           f"{hits} JAX lines equal to a ground-truth line")
     write_staged(pages)
+    write_train()
+    write_presets(pages)
 
 
 if __name__ == "__main__":
