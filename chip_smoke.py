@@ -14,7 +14,9 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    version ``db_epilogue_plain`` on the same inputs, both outputs bit-exact
    (``torch.equal``), and the mask-only entry points likewise; then timed at
    the main path's shape: device time per launch from a CUDA graph of 100
-   launches, host time per wrapper call, beside its memory bound;
+   launches, host time per wrapper call, beside its memory bound; and the
+   same, bit-exact first, at the ONNX path's shape (``ONNX_SHAPE``: float32
+   probabilities at full resolution, pool 4);
 3. end to end: ``RettoSession(device="cuda").device_pipeline().run_many``
    with the mobile checkpoints over the fixture pages
    (``retto_tpu_torch/testdata/smoke_pages.npz``: gray pages, one tinted
@@ -71,7 +73,17 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    (``python -m retto_tpu_torch.train.synthetic``) is not run: its
    renderers need the DejaVu fonts, which the H100 host checked for this
    script lacks;
-10. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+10. onnx: the ONNX path, ``OnnxEngine(device="cuda")`` over the three
+   full-size Paddle-export replicas (``weights/replica.py``, 6,625-class
+   rec, ``charset_big.txt``): the fused ``run_many`` on the 8 gray pages and
+   the rotated page, which launches the det epilogue in its float32
+   probability, pool-4 mode (asserted per call) on [4, 1024, 768] maps,
+   its graph calls against eager bit for bit, and the staged COMPAT
+   ``run`` on the 10 fixture inputs, both held to the JAX ``OnnxEngine``'s
+   lines (``retto_tpu_torch/testdata/smoke_onnx.npz``) by phase 3's rule
+   with at least one box on every page; images/s of warm 16-page calls,
+   no capture inside them.  Phase 2 times the kernel at that shape;
+11. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
 ``compile_count()`` (captured graphs) is printed after each phase.
@@ -100,7 +112,9 @@ from scipy import ndimage
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from retto_tpu_torch import PipelineMode, RettoError, RettoSession, SessionConfig  # noqa: E402
+from retto_tpu_torch import (  # noqa: E402
+    OnnxEngine, PipelineMode, RettoError, RettoSession, SessionConfig,
+)
 from retto_tpu_torch import kernels, native  # noqa: E402
 from retto_tpu_torch._build import BUILD_DIR  # noqa: E402
 from retto_tpu_torch.ops import db_pack  # noqa: E402
@@ -108,6 +122,7 @@ from retto_tpu_torch.ops.charset import CharacterDict  # noqa: E402
 from retto_tpu_torch.models import build_cls, build_det, build_rec  # noqa: E402
 from retto_tpu_torch.models.common import cast_compute  # noqa: E402
 from retto_tpu_torch.ops.ctc import ctc_greedy_decode  # noqa: E402
+from retto_tpu_torch.pipeline import device_pipeline  # noqa: E402
 from retto_tpu_torch.pipeline.device_pipeline import _is_aligned  # noqa: E402
 from retto_tpu_torch.serve import make_server  # noqa: E402
 from retto_tpu_torch.train import (  # noqa: E402
@@ -122,9 +137,15 @@ from retto_tpu_torch.train.synthetic import _cls_loss_sym, _cls_views  # noqa: E
 from retto_tpu_torch.weights import (  # noqa: E402
     export_flax_params, load_flax_params, load_params_meta, save_params,
 )
+from retto_tpu_torch.weights.replica import (  # noqa: E402
+    build_cls_replica, build_det_replica, build_rec_replica,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SHAPE = (4, 512, 384)  # det chunk 4 x stride-2 logits of a 1024x768 bucket
+# the ONNX path's det chunk: 4 x full-resolution float32 probabilities of a
+# 1024x768 bucket, pooled by 4 (phase onnx)
+ONNX_SHAPE = (4, 1024, 768)
 LOGIT_THRESH = math.log(0.3 / 0.7)
 # a line agrees with the JAX pipeline when its text is equal and its box
 # lies within BOX_TOL_PX; at least TEXT_MATCH_MIN of the lines must agree.
@@ -366,6 +387,29 @@ def kernel_phase() -> dict:
         device_ms=f"{out['mask_only_ms']:.6f}", host_ms=f"{out['mask_only_host_ms']:.6f}",
         plain_ms=f"{out['mask_only_plain_ms']:.6f}",
         bound_ms=f"{out['mask_only_bound_ms']:.6f}", bytes=k1_bytes)
+    # the ONNX path's mode: float32 probabilities at full resolution, pool 4
+    ob, oh, ow = ONNX_SHAPE
+    probs = torch.sigmoid(torch.randn(ONNX_SHAPE, generator=gen, device=dev) * 3 - 3)
+    o_mask, o_prob = db_pack.db_epilogue(probs, 0.3, True, 4, False)
+    torch.cuda.synchronize()
+    r_mask, r_prob = db_pack.db_epilogue_plain(probs, 0.3, True, 4, False)
+    exact = torch.equal(o_mask, r_mask) and torch.equal(o_prob, r_prob)
+    say("kernel", fn="db_epilogue", case="onnx_f32_probs_pool4", shape=ONNX_SHAPE,
+        dtype="float32", pool=4, logits=False, exact=exact,
+        mask_ones=int(o_mask.ne(0).sum()), prob_sum=int(o_prob.sum()))
+    if not exact:
+        fail("db_epilogue differs from its plain version at the ONNX path's shape")
+    o_bytes = ob * oh * ow * probs.element_size() + ob * (oh // 8) * ow + ob * (oh // 4) * (ow // 4)
+    onnx = lambda: db_pack.db_epilogue(probs, 0.3, True, 4, False)  # noqa: E731
+    out["onnx_ms"] = device_ms(onnx)
+    out["onnx_host_ms"] = host_ms(onnx)
+    out["onnx_plain_ms"] = cuda_ms(lambda: db_pack.db_epilogue_plain(
+        probs, 0.3, True, 4, False), 200)
+    out["onnx_bound_ms"] = o_bytes / HBM_BYTES_PER_S * 1e3
+    say("kernel", fn="db_epilogue", timed_shape=ONNX_SHAPE, mode="f32_probs_pool4",
+        device_ms=f"{out['onnx_ms']:.6f}", host_ms=f"{out['onnx_host_ms']:.6f}",
+        plain_ms=f"{out['onnx_plain_ms']:.6f}", bound_ms=f"{out['onnx_bound_ms']:.6f}",
+        bytes=o_bytes)
     page = main[0]
     k2 = lambda: db_pack.binarize_dilate_pack_rows(page, LOGIT_THRESH, True)  # noqa: E731
     ms1 = device_ms(k2)
@@ -1129,6 +1173,132 @@ def presets_phase() -> None:
         fail(f"big-vocab rec: {agree}/{len(texts)} lines agree with JAX")
 
 
+def onnx_session(mode: str = "performance") -> RettoSession:
+    """A session over the three full-size Paddle-export replicas
+    (``weights/replica.py``) through ``OnnxEngine`` on the card, with the
+    det settings of the JAX fixture (tools/make_torch_smoke_fixture.py
+    ``onnx_det_config``: box_thresh 0.2, dilation)."""
+    chars = CharacterDict((ROOT / "trained_weights" / "charset_big.txt")
+                          .read_text(encoding="utf-8").splitlines())
+    engine = OnnxEngine(det=build_det_replica(), cls=build_cls_replica(),
+                        rec=build_rec_replica(), device="cuda")
+    cfg = SessionConfig(mode=PipelineMode(mode))
+    cfg.engine.transfer_format = "yuv420"
+    cfg.det.box_thresh = 0.2
+    cfg.det.use_dilation = True
+    return RettoSession(cfg, engine=engine, charset=chars, device="cuda")
+
+
+def _per_page(label: str, lines: list, n_pages: int) -> None:
+    counts = np.bincount([p for p, _, _ in lines], minlength=n_pages)
+    if (counts[:n_pages] == 0).any():
+        fail(f"{label}: no box on pages {np.flatnonzero(counts[:n_pages] == 0).tolist()}")
+
+
+def onnx_phase(fx) -> int:
+    """The ONNX path: the replica OnnxEngine's fused ``run_many`` over the
+    8 gray pages and the rotated page (the det epilogue in its float32
+    probability, pool-4 mode), its graphs against eager, the staged COMPAT
+    session over the 10 fixture inputs, both held to the JAX fixture
+    (``testdata/smoke_onnx.npz``) by phase 3's line rule, then warm 16-page
+    calls timed; returns the db_epilogue launches of the fused call."""
+    fxo = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_onnx.npz")
+    t = time.perf_counter()
+    session = onnx_session()
+    dp = session.device_pipeline()
+    say("onnx", session_build_s=f"{time.perf_counter() - t:.2f}")
+    inputs = fixture_inputs(fx)
+    fused_in = inputs[:8] + [inputs[9]]
+
+    modes = []
+    orig = device_pipeline.db_epilogue
+
+    def recording(pred, thresh, dilate, pool, logits):
+        modes.append((str(pred.dtype).split(".")[-1], tuple(pred.shape), pool, logits))
+        return orig(pred, thresh, dilate, pool, logits)
+
+    device_pipeline.db_epilogue = recording
+    calls = record_graph_calls(dp)
+    db_pack.db_epilogue.launches = 0
+    t = time.perf_counter()
+    try:
+        res = dp.run_many(fused_in)
+        torch.cuda.synchronize()
+    finally:
+        device_pipeline.db_epilogue = orig
+    launches = db_pack.db_epilogue.launches
+    stop_recording(dp)
+    n_graphs, capture_s = captures(dp)
+    say("onnx", fused_run_many_s=f"{time.perf_counter() - t:.3f}", images=len(res),
+        db_epilogue_launches=launches, epilogue_modes=sorted(set(modes)),
+        compile_count=n_graphs, capture_s=f"{capture_s:.2f}")
+    if launches <= 0:
+        fail("the ONNX path never launched the db_epilogue kernel")
+    if not modes or any(m[0] != "float32" or m[2] != 4 or m[3] for m in modes):
+        fail(f"the ONNX path's det epilogue ran in another mode: {sorted(set(modes))}")
+    graphs_against_eager(calls)
+    del calls
+    got = _lines(res, list(range(8)) + [8])
+    _per_page("onnx fused", got, 9)
+    agree, total, dists = compare("onnx fused", got, fxo["fused_page"], fxo["fused_boxes"],
+                                  fxo["fused_texts"])
+    frac = agree / max(total, 1)
+    say("onnx", fused_lines_agreeing_with_jax=f"{agree}/{total}", fraction=f"{frac:.4f}",
+        box_max_px=f"{max(dists, default=0.0):.2f}",
+        boxes_beyond_tol=sum(d > BOX_TOL_PX for d in dists))
+    if total == 0 or frac < TEXT_MATCH_MIN or max(dists, default=0.0) > BOX_MAX_PX:
+        fail(f"ONNX fused: {agree}/{total} lines agree, box {max(dists, default=0.0):.2f} px")
+
+    batch = inputs[:8] + inputs[:8]
+    dp.run_many(batch)
+    torch.cuda.synchronize()
+    times = []
+    compiles0 = dp.compile_count()
+    for _ in range(5):
+        db_pack.db_epilogue.launches = 0
+        t = time.perf_counter()
+        dp.run_many(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    med = sorted(times)[len(times) // 2]
+    say("onnx", pages=len(batch), images_per_s_median=f"{len(batch) / med:.3f}",
+        images_per_s_best=f"{len(batch) / min(times):.3f}",
+        images_per_s_worst=f"{len(batch) / max(times):.3f}",
+        run_s=[round(x, 4) for x in times],
+        db_epilogue_launches_per_run=db_pack.db_epilogue.launches,
+        compile_count=dp.compile_count(), captures_in_timed_region=dp.compile_count() - compiles0)
+    if dp.compile_count() != compiles0:
+        fail("the timed ONNX runs captured a new graph")
+    session.close()
+
+    with onnx_session("compat") as staged:
+        t = time.perf_counter()
+        res = [staged.run(x) for x in inputs]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        passes = []
+        for _ in range(3):
+            t = time.perf_counter()
+            for x in inputs:
+                staged.run(x)
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t)
+    got = _lines(res, range(len(inputs)))
+    _per_page("onnx staged", got, len(inputs))
+    agree, total, dists = compare("onnx compat", got, fxo["compat_page"], fxo["compat_boxes"],
+                                  fxo["compat_texts"])
+    frac = agree / max(total, 1)
+    say("onnx", staged_compat_lines_agreeing_with_jax=f"{agree}/{total}",
+        fraction=f"{frac:.4f}", box_max_px=f"{max(dists, default=0.0):.2f}",
+        first_pass_s=f"{run_s:.3f}",
+        warm_images_per_s_median=f"{len(inputs) / sorted(passes)[1]:.3f}",
+        warm_images_per_s_best=f"{len(inputs) / min(passes):.3f}",
+        warm_images_per_s_worst=f"{len(inputs) / max(passes):.3f}")
+    if total == 0 or frac < TEXT_MATCH_MIN or max(dists, default=0.0) > BOX_MAX_PX:
+        fail(f"ONNX staged: {agree}/{total} lines agree, box {max(dists, default=0.0):.2f} px")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -1148,6 +1318,7 @@ def main() -> None:
         serve_launches = serve_phase(fx, sessions, staged, Path(tmp))
     presets_phase()
     train = train_phase()
+    onnx_launches = onnx_phase(fx)
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",
@@ -1156,6 +1327,7 @@ def main() -> None:
         "also_replaces": "retto_tpu/ops/pallas/db_pack.py:127",
         "launches": launches,
         "server_launches": serve_launches,
+        "onnx_launches": onnx_launches,
         "exact": True,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
@@ -1169,6 +1341,11 @@ def main() -> None:
         "mask_only_host_ms": k["mask_only_host_ms"],
         "mask_only_plain_ms": k["mask_only_plain_ms"],
         "mask_only_bound_ms": k["mask_only_bound_ms"],
+        "onnx_shape": list(ONNX_SHAPE),
+        "onnx_ms": k["onnx_ms"],
+        "onnx_host_ms": k["onnx_host_ms"],
+        "onnx_plain_ms": k["onnx_plain_ms"],
+        "onnx_bound_ms": k["onnx_bound_ms"],
     }]}
     say("done", total_s=f"{time.perf_counter() - t0:.1f}")
     print("[train] steps_per_s " + json.dumps({k: round(v["steps_per_s_median"], 4)

@@ -35,7 +35,14 @@ from .errors import (
     RettoWeightsError,
 )
 from .geometry import Point, PointBox
-from .pipeline import DevicePipeline, Engine, FakeEngine, RettoSession, TorchEngine
+from .pipeline import (
+    DevicePipeline,
+    Engine,
+    FakeEngine,
+    OnnxEngine,
+    RettoSession,
+    TorchEngine,
+)
 from .results import (
     ClsLabel,
     ClsResult,
@@ -52,6 +59,7 @@ __all__ = [
     "DevicePipeline",
     "Engine",
     "TorchEngine",
+    "OnnxEngine",
     "FakeEngine",
     "SessionConfig",
     "DetConfig",

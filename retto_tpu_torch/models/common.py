@@ -52,6 +52,8 @@ __all__ = [
     "hard_sigmoid",
     "hard_swish",
     "mean_f32",
+    "xla_hw_sum",
+    "xla_dot",
     "ACTIVATIONS",
     "Conv",
     "Dense",
@@ -91,6 +93,9 @@ def hard_sigmoid(x: torch.Tensor, slope: float = 0.2, offset: float = 0.5) -> to
     return torch.clamp(x * _const(slope, x) + _const(offset, x), 0.0, 1.0)
 
 
+HARD_SWISH_SCALE = float(torch.tensor(1.0 / 6.0))  # float32(1/6)
+
+
 def hard_swish(x: torch.Tensor) -> torch.Tensor:
     """``x * clip(x + 3, 0, 6) / 6``; XLA turns the division by the constant
     into a multiply by float32(1/6)."""
@@ -111,6 +116,88 @@ def mean_f32(x: torch.Tensor, dim) -> torch.Tensor:
     dims = (dim,) if isinstance(dim, int) else tuple(dim)
     n = math.prod(x.shape[d] for d in dims)
     return x.float().sum(dim=dims, keepdim=True) * (1.0 / n)
+
+
+def _sum_in_order(x: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """Float32 sum over the last axis, term by term from +0.  With ``scale``
+    each step is one fused multiply-add, ``s = fma(x_i, scale, s)``: the
+    product of a bf16 value and a float32 scale is exact in float64, so one
+    rounding of the float64 sum gives the fused result."""
+    if scale is None:
+        s = x[..., 0] + 0.0
+        for i in range(1, x.shape[-1]):
+            s = s + x[..., i]
+        return s
+    x = x.double()
+    s = (x[..., 0] * scale).float()
+    for i in range(1, x.shape[-1]):
+        s = (x[..., i] * scale + s.double()).float()
+    return s
+
+
+def xla_hw_sum(x: torch.Tensor, scale: float | None = None, window: int = 32
+               ) -> torch.Tensor:
+    """float32 sum of [..., H, W] over (H, W) in XLA:CPU's order (its tree
+    reduction rewriter, read from the compiled HLO): when an axis exceeds
+    ``window``, that axis is zero-padded evenly (the odd element after) to a
+    multiple of ``window`` and cut into windows of ``window``, an axis of
+    ``window`` or fewer is one window; each window sums its (h, w) terms row
+    by row, term by term, and the windows' sums are summed the same way.
+    Equal to ``jnp.sum`` bit for bit at every SE and LCNet shape of the rec
+    (tools/cpu_parity_probe.py dw).  ``scale``: the terms are ``x * scale``,
+    a multiply that XLA's fusion contracts into the window sums' adds
+    (:func:`_sum_in_order`)."""
+    h, w = x.shape[-2:]
+    if h <= window and w <= window:
+        return _sum_in_order(x.float().flatten(-2), scale)
+    cuts = []
+    for n in (h, w):
+        padded = -(-n // window) * window if n > window else n
+        cuts.append((min(n, window), padded, (padded - n) // 2))
+    (wh, ph, lh), (ww, pw, lw) = cuts
+    x = F.pad(x.float(), (lw, pw - w - lw, lh, ph - h - lh))
+    x = x.unflatten(-1, (pw // ww, ww)).unflatten(-3, (ph // wh, wh))
+    return xla_hw_sum(_sum_in_order(x.movedim(-3, -2).flatten(-2), scale), window=window)
+
+
+def _xla_dot_order(m: int, k: int, n: int) -> tuple[str, int]:
+    """The order in which XLA:CPU's float32 dot [M, K] x [K, N] sums its K
+    products, as read against ``jax.jit(jnp.dot)`` at the SE gates' shapes
+    (Eigen's blocking, which depends on the shape;
+    tools/cpu_parity_probe.py dw): ``("lanes", L)``, L interleaved partial
+    sums (term i into sum i mod L) added pairwise; or ``("blocks", B)``,
+    blocks of B terms each summed from zero, the block sums added in order
+    (B = K: one sequential sum).  Shapes not read take the sequential sum."""
+    if m >= 2:
+        if (k, n) == (64, 16):
+            return "lanes", 4
+        if (k, n) == (512, 128) and m <= 32:
+            return "blocks", 256
+        if (k, n) == (128, 512) and m <= 50:
+            return "blocks", 64
+        if (k, n) == (128, 32) and m >= 51:
+            return "lanes", 2
+    return "blocks", k
+
+
+def xla_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 [M, K] x [K, N] summed in :func:`_xla_dot_order`'s order.
+    Products of compute-dtype values are exact in float32, so the order
+    alone decides the bits."""
+    a, w = a.float(), w.float()
+    m, k = a.shape
+    kind, size = _xla_dot_order(m, k, w.shape[1])
+    terms = a[:, :, None] * w[None]  # [M, K, N]
+    if kind == "lanes":
+        parts = [_sum_in_order(terms[:, i::size].transpose(1, 2)) for i in range(size)]
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        return parts[0]
+    out = None
+    for b in range(0, k, size):
+        blk = _sum_in_order(terms[:, b:b + size].transpose(1, 2))
+        out = blk if out is None else out + blk
+    return out
 
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -191,11 +278,14 @@ def _xla_kc(k: int) -> int:
 
 
 def _conv_f32_cpu(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
-                  pads: tuple[int, int, int, int]) -> torch.Tensor | None:
+                  pads: tuple[int, int, int, int], as_dot: bool = False
+                  ) -> torch.Tensor | None:
     """float32 conv of NCHW ``x`` summed in XLA:CPU's order (the native
     ``conv_xla``: Eigen's blocked fused multiply-add chains over (kh, kw,
     cin)), or None without the native library.  ``pads``: (top, bottom,
-    left, right)."""
+    left, right).  ``as_dot``: XLA runs this 1 x 1 conv as an HLO ``dot``,
+    which sums its K products in one sequential chain at the rec's
+    pointwise shapes (tools/cpu_parity_probe.py dw), not in blocks."""
     from ..native import conv_xla_native
 
     n, cin, h, wd = x.shape
@@ -204,7 +294,8 @@ def _conv_f32_cpu(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
     ow = (wd + pads[2] + pads[3] - kw) // stride[1] + 1
     out = conv_xla_native(x.detach().permute(0, 2, 3, 1).numpy(),
                           w.detach().permute(2, 3, 1, 0).numpy(),
-                          stride, (pads[0], pads[2]), (oh, ow), _xla_kc(kh * kw * cin),
+                          stride, (pads[0], pads[2]), (oh, ow),
+                          kh * kw * cin if as_dot else _xla_kc(kh * kw * cin),
                           torch.get_num_threads())
     return None if out is None else torch.from_numpy(out).permute(0, 3, 1, 2)
 
@@ -264,6 +355,7 @@ class Conv(nn.Conv2d):
     float32 (no rounding of the result to the compute dtype)."""
 
     compute_dtype: torch.dtype | None = None
+    xla_dot = False  # XLA compiles this 1 x 1 conv to a dot (_conv_f32_cpu)
 
     def __init__(self, in_ch: int, out_ch: int, kernel=1, stride=1, groups: int = 1,
                  bias: bool = True):
@@ -285,7 +377,8 @@ class Conv(nn.Conv2d):
                 b is None or x.shape[2] * x.shape[3] > 1):
             y = None
             if self.groups == 1:
-                y = _conv_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
+                y = _conv_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw),
+                                  self.xla_dot)
             elif self.groups == self.in_channels == self.out_channels:
                 y = _depthwise_f32_cpu(x.float(), w.float(), self.stride, (*ph, *pw))
             if y is not None:
@@ -401,10 +494,20 @@ class ConvBNAct(nn.Module):
         self.BatchNorm_0 = BatchNorm(out_ch)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep_f32: bool = False):
+        """With ``keep_f32`` (hard-swish only) returns the activation and,
+        beside it, ``bf16(y * clip(y + 3, 0, 6))`` as float32, the product
+        before its multiply by float32(1/6) (:data:`HARD_SWISH_SCALE`): a
+        mean that follows the block (an SE gate, the LCNet's final mean over
+        the height) reads the unrounded ``product * (1/6)`` in XLA, with the
+        multiply fused into its sum (:func:`xla_hw_sum`)."""
         conv = self.Conv_0
         y = self.BatchNorm_0(conv(x, f32_out=True))
-        return ACTIVATIONS[self.act](y.to(conv.compute_dtype or conv.weight.dtype))
+        y = y.to(conv.compute_dtype or conv.weight.dtype)
+        if keep_f32:
+            p = (y * torch.clamp(y + 3.0, 0.0, 6.0)).float()
+            return (p * HARD_SWISH_SCALE).to(y.dtype), p
+        return ACTIVATIONS[self.act](y)
 
 
 class SEModule(nn.Module):
@@ -416,10 +519,26 @@ class SEModule(nn.Module):
         self.Conv_0 = Conv(ch, max(ch // reduction, 1), 1)
         self.Conv_1 = Conv(max(ch // reduction, 1), ch, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = mean_f32(x, (2, 3)).to(x.dtype)
-        s = self.Conv_1(F.relu(self.Conv_0(s)))
-        return x * hard_sigmoid(s)
+    def forward(self, x: torch.Tensor, x32: torch.Tensor | None = None) -> torch.Tensor:
+        """``x32``: the hard-swish product ``x`` was rounded from, before its
+        1/6, which XLA's mean reads (``ConvBNAct(keep_f32=True)``).  On the CPU in inference
+        the mean and both 1 x 1 convs take XLA:CPU's order
+        (:func:`xla_hw_sum`, :func:`xla_dot`), each conv's product rounding
+        to the compute dtype before its bias add, as the HLO ``dot`` and
+        ``add`` do; elsewhere the mean reads ``x`` and the convs are
+        ``F.conv2d``."""
+        if x.is_cuda or self.training:
+            s = mean_f32(x, (2, 3)).to(x.dtype)
+            s = self.Conv_1(F.relu(self.Conv_0(s)))
+            return x * hard_sigmoid(s)
+        total = xla_hw_sum(x) if x32 is None else xla_hw_sum(x32, HARD_SWISH_SCALE)
+        s = (total * (1.0 / (x.shape[2] * x.shape[3]))).to(x.dtype)
+        for i, conv in enumerate((self.Conv_0, self.Conv_1)):
+            w, b = _compute_params(conv)
+            s = xla_dot(s, w[:, :, 0, 0].t()).to(w.dtype) + b
+            if i == 0:
+                s = F.relu(s)
+        return x * hard_sigmoid(s[:, :, None, None])
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:

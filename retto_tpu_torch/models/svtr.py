@@ -21,12 +21,14 @@ from torch import nn
 
 from .common import (
     ACTIVATIONS,
+    HARD_SWISH_SCALE,
     ComputeModel,
     ConvBNAct,
     Dense,
     LayerNorm,
     SEModule,
     mean_f32,
+    xla_hw_sum,
 )
 
 __all__ = ["DSConv", "LCNetBackbone", "MultiHeadDotProductAttention", "SVTRBlock",
@@ -44,12 +46,19 @@ class DSConv(nn.Module):
         if use_se:
             self.SEModule_0 = SEModule(in_ch)
         self.ConvBNAct_1 = ConvBNAct(in_ch, out_ch, 1, 1, act="hardswish")
+        self.ConvBNAct_1.Conv_0.xla_dot = True  # an HLO dot in the compiled rec
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ConvBNAct_0(x)
-        if self.use_se:
-            x = self.SEModule_0(x)
-        return self.ConvBNAct_1(x)
+    def forward(self, x: torch.Tensor, keep_f32: bool = False):
+        """``keep_f32``: also return the last activation's float32 product
+        (``ConvBNAct``), which the LCNet's final mean reads."""
+        if self.use_se and not x.is_cuda and not self.training:
+            # the SE gate's mean reads the unrounded product (SEModule)
+            x = self.SEModule_0(*self.ConvBNAct_0(x, keep_f32=True))
+        else:
+            x = self.ConvBNAct_0(x)
+            if self.use_se:
+                x = self.SEModule_0(x)
+        return self.ConvBNAct_1(x, keep_f32=keep_f32)
 
 
 class LCNetBackbone(nn.Module):
@@ -72,33 +81,25 @@ class LCNetBackbone(nn.Module):
                 c = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """On the CPU in inference the final mean reads the last block's
+        unrounded hard-swish product and sums the height in XLA:CPU's order
+        with the 1/6 fused in (``models.common.xla_hw_sum``), as the
+        compiled Flax model does."""
         x = self.ConvBNAct_0(x)
-        for name in self.blocks:
+        for name in self.blocks[:-1]:
             x = getattr(self, name)(x)
-        return mean_f32(x, 2).squeeze(2).to(x.dtype).transpose(1, 2)
+        if x.is_cuda or self.training:
+            x = getattr(self, self.blocks[-1])(x)
+            return mean_f32(x, 2).squeeze(2).to(x.dtype).transpose(1, 2)
+        x, x32 = getattr(self, self.blocks[-1])(x, keep_f32=True)
+        mean = xla_hw_sum(x32.transpose(2, 3)[..., None], HARD_SWISH_SCALE) * (1.0 / x.shape[2])
+        return mean.to(x.dtype).transpose(1, 2)
 
 
-def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
-    """Float32 sum over the last axis, term by term from +0."""
-    s = x[..., 0] + 0.0
-    for i in range(1, x.shape[-1]):
-        s = s + x[..., i]
-    return s
-
-
-def _xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
-    """Sum over the last axis in XLA:CPU's order: an axis of ``window`` or
-    more is zero-padded to a multiple of ``window`` (the padding split
-    evenly, the odd element after), each window summed term by term, then
-    the window sums the same way (XLA's tree reduction rewriter, read from
-    the compiled HLO's ``reduce-window``)."""
-    n = x.shape[-1]
-    if n < window:
-        return _sum_in_order(x)
-    padded = -(-n // window) * window
-    left = (padded - n) // 2
-    x = F.pad(x, (left, padded - n - left))
-    return _xla_row_sum(_sum_in_order(x.unflatten(-1, (padded // window, window))), window)
+def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in XLA:CPU's order: ``xla_hw_sum`` over one
+    row (windows of 32 over the zero-padded axis, then the windows)."""
+    return xla_hw_sum(x.unsqueeze(-2))
 
 
 class MultiHeadDotProductAttention(nn.Module):

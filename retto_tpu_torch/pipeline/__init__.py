@@ -1,5 +1,7 @@
 from .device_pipeline import DevicePipeline
 from .engine import Engine, FakeEngine, TorchEngine
+from .onnx_engine import OnnxEngine
 from .session import RettoSession
 
-__all__ = ["DevicePipeline", "Engine", "FakeEngine", "RettoSession", "TorchEngine"]
+__all__ = ["DevicePipeline", "Engine", "FakeEngine", "OnnxEngine", "RettoSession",
+           "TorchEngine"]

@@ -23,6 +23,13 @@ accumulate across chunks and, in ``stream``, across batches, keyed by
 channel count: chunks of other upload shapes meet in a device edge pad +
 concat (``_pad_concat``).
 
+The det model is the port's ``DetModel`` (NHWC in its compute dtype,
+stride-2 logits, pool 2) or any other module with the engine contract, an
+``OnnxEngine`` graph among them: it takes NCHW float32 after the resize
+and normalize in float32 and returns a full-resolution probability map,
+which the det epilogue thresholds at ``det.thresh`` and pools by 4
+(device_pipeline.py:340-355, 446-464, 489-495).
+
 Differences from the JAX pipeline, all of them scheduling:
 
 * every dispatch (det, cls + rec, the crop concat) and every capture runs
@@ -64,6 +71,7 @@ from ..geometry import PointBox, scale_and_clip
 from ..image.io import ImageHelper, decode_image, perspective_coeffs
 from ..image.warp import _axis_matrix, warp_crops_multi
 from ..image.yuv import rgb_to_yuv420, yuv420_to_rgb_device, yuv_planes_to_rgb
+from ..models.dbnet import DetModel
 from ..ops.charset import CharacterDict
 from ..ops.ctc import ctc_greedy_decode
 from ..ops.db_pack import db_epilogue, pooled_prob_plain, unpack_rows
@@ -290,8 +298,15 @@ class DevicePipeline:
         self._det_model = det_model
         self._cls_model = cls_model
         self._rec_model = rec_model
-        self._det_stride = int(getattr(det_model, "out_stride", 1) or 1)
-        self._det_dtype = getattr(det_model, "compute_dtype", None) or torch.float32
+        # the port's DetModel takes NHWC in its compute dtype and returns
+        # stride-s logits; any other det (an ONNX graph, OnnxEngine) keeps the
+        # engine contract: NCHW float32 in, a full-resolution probability
+        # map out (device_pipeline.py:340-355)
+        self._det_native = isinstance(det_model, DetModel)
+        self._det_stride = (int(getattr(det_model, "out_stride", 1) or 1)
+                            if self._det_native else 1)
+        self._det_dtype = ((getattr(det_model, "compute_dtype", None) or torch.float32)
+                           if self._det_native else torch.float32)
         self._cls_label = torch.tensor([int(v) for v in config.cls.label],
                                        dtype=torch.int32, device=self.device)
         self._cls_perm = (
@@ -369,12 +384,15 @@ class DevicePipeline:
         x = (x.to(torch.float64) * scale.double() - mean.double()).to(torch.float32)
         x = (x / std).to(det_dtype)
         s = self._det_stride
-        pred = self._det_model(x, nhwc=True, raw_logits=s > 1)
+        if self._det_native:
+            pred = self._det_model(x, nhwc=True, raw_logits=s > 1)
+        else:  # f32 NCHW in, probabilities out (device_pipeline.py:446-454)
+            pred = self._det_model(x.permute(0, 3, 1, 2).contiguous())
         mh, mw = dh // s, dw // s
         dilate = det_cfg.use_dilation and det_cfg.dilation_kernel is not None
         pred_map = pred[:, 0]
         # the head returns logits when s > 1: p > t  <=>  logit > ln(t / (1 - t))
-        logits = s > 1
+        logits = self._det_native and s > 1
         t = float(det_cfg.thresh)
         bin_thresh = float(math.log(t / (1.0 - t))) if logits else t
         # the mean-pooled u8 prob map on the det/4 grid rides down with the mask

@@ -77,8 +77,8 @@ class RettoSession:
     """Three-stage OCR session (session.rs:58-143).
 
     Construction options (session.py:37-70):
-    * ``engine=`` — bring your own Engine (``FakeEngine`` for tests, or a
-      ``TorchEngine``);
+    * ``engine=`` — bring your own Engine (``FakeEngine`` for tests, a
+      ``TorchEngine``, or an ``OnnxEngine`` over ``.onnx`` graphs);
     * ``weights={"det": path, "cls": path, "rec": path}`` — self-described
       ``.npz`` checkpoints, built into models that the staged engine and
       ``device_pipeline()`` share (one copy on the device, one lock);
@@ -114,15 +114,17 @@ class RettoSession:
 
     def device_pipeline(self) -> DevicePipeline:
         """The fused device-resident fast path (pipeline.device_pipeline)
-        over the engine's models; an engine without det, cls and rec models
-        (a ``FakeEngine``) cannot be fused (session.py:72-105)."""
+        over the engine's models: the session's own, a ``TorchEngine``'s or
+        an ``OnnxEngine``'s translated graphs (session.py:72-107), under the
+        engine's dispatch lock.  An engine without det, cls and rec models
+        (a ``FakeEngine``) cannot be fused."""
         if self._device_pipeline is None:
             mods = self.engine.modules() if hasattr(self.engine, "modules") else {}
             if not all(k in mods for k in ("det", "cls", "rec")):
                 raise RettoEngineError(
                     "device_pipeline requires fusable models: construct "
-                    "RettoSession without engine=, or with a TorchEngine "
-                    "holding det+cls+rec"
+                    "RettoSession without engine=, or with a TorchEngine or "
+                    "OnnxEngine holding det+cls+rec"
                 )
             self._device_pipeline = DevicePipeline(
                 mods["det"], mods["cls"], mods["rec"], self.config, self.chars,

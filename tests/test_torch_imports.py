@@ -78,3 +78,20 @@ def test_cli_and_serve_entry_points_load_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "retto-torch" in proc.stdout
+
+
+@pytest.mark.parametrize("module", ["retto_tpu_torch.weights.onnx_proto",
+                                    "retto_tpu_torch.weights.onnx_bridge",
+                                    "retto_tpu_torch.weights.replica",
+                                    "retto_tpu_torch.pipeline.onnx_engine",
+                                    "retto_tpu_torch.utils.flops"])
+def test_onnx_path_modules_load_no_jax(module):
+    """The ONNX path and the FLOP accounting, each imported alone in a fresh
+    interpreter, load no jax, flax, retto_tpu or PIL module."""
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'retto_tpu', 'PIL')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

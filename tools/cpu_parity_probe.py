@@ -33,21 +33,14 @@ part:
   other tap 1, input 1: an output then counts the taps outside the
   smallest subtree that holds both) and held to ``models.common.
   _DW_TREES``; the port's depthwise conv against XLA on random bf16 data;
-  and the order of the SE gate's 1 x 1 convs, which XLA:CPU runs as
-  ``dot``s: for each [M, K] x [K, N] of the mobile rec, whether a
-  sequential sum over K or four interleaved partial sums over K (combined
-  as (0 + 1) + (2 + 3)) reproduces XLA.  Then the witness for the SE
-  gates: the mobile rec on the ``rec`` part's noise and on four rendered
-  lines of ``testdata/smoke_train.npz``, with every SEModule of the port's LCNet
-  given the Flax model's own ``Conv_1`` output (the gate's pre-activation)
-  in place of its own mean and 1 x 1 convs: the LCNet features that then
-  differ from Flax's, against those that differ without the substitution;
-  each LCNet layer fed the Flax model's own input to it (the layers whose
-  outputs differ); and the final mean over the height fed Flax's last
-  block output, against the Flax model's features and against a
-  standalone jitted ``jnp.mean`` of the same block output; and, with
-  Flax's gates, the features when the final mean is taken over the last
-  activation before its bf16 rounding, as the compiled model's HLO does.
+  the SE gates' and pointwise convs' HLO ``dot``s [M, K] x [K, N] against
+  ``models.common.xla_dot`` (the order ``_xla_dot_order`` reads: M = 1
+  sequential, then by shape and M, Eigen's blocking); XLA's windowed sum
+  over (H, W) against ``models.common.xla_hw_sum``; and the mobile rec's
+  LCNet on the ``rec`` part's noise and on four rendered lines of
+  ``testdata/smoke_train.npz``: its features against Flax's, each block
+  fed the Flax model's own input to it, and the rec output's largest
+  difference relative to its largest probability.
 """
 
 from __future__ import annotations
@@ -71,7 +64,7 @@ from retto_tpu.models.common import ConvBNAct as JConvBNAct  # noqa: E402
 from retto_tpu.weights import load_params_meta as j_load  # noqa: E402
 from retto_tpu_torch.models import build_det, build_rec  # noqa: E402
 from retto_tpu_torch.models.common import (  # noqa: E402
-    ACTIVATIONS, LayerNorm, SEModule, _same_pads, cast_compute, hard_sigmoid, mean_f32,
+    ACTIVATIONS, LayerNorm, _same_pads, _xla_dot_order, cast_compute, xla_dot, xla_hw_sum,
 )
 from retto_tpu_torch.models.svtr import _xla_row_sum  # noqa: E402
 from retto_tpu_torch.weights import load_flax_params, load_params_meta  # noqa: E402
@@ -311,47 +304,31 @@ def dw_part() -> dict:
         out["random"].append({"nhwc": [n, h, w_, c], "kernel": kk, "stride": list(s),
                               "differing": int((got.permute(0, 2, 3, 1).numpy() != ref).sum())})
     dot = jax.jit(jnp.dot)
-    for m, k, nn_ in [(2, 64, 16), (2, 128, 32), (2, 256, 64), (2, 512, 128), (16, 512, 128),
-                      (40, 512, 128)]:
+    shapes = [(m, c, c // 4) for m in (1, 2, 6, 40, 64) for c in (64, 128, 256, 512)]
+    shapes += [(m, c // 4, c) for m in (1, 2, 6, 40, 64) for c in (64, 128, 256, 512)]
+    shapes += [(240, 512, 512), (240, 256, 512), (480, 128, 128)]
+    for m, k, nn_ in shapes:
         a, w = bf(rng.normal(size=(m, k))), bf(rng.normal(size=(k, nn_)))
         ref = np.asarray(dot(a, w))
-        seq = np.zeros((m, nn_), np.float32)
-        lanes = [np.zeros((m, nn_), np.float32) for _ in range(4)]
-        for i in range(k):
-            seq = seq + a[:, i:i + 1] * w[i]
-            lanes[i % 4] = lanes[i % 4] + a[:, i:i + 1] * w[i]
-        four = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
-        out["se_dot"].append({"mkn": [m, k, nn_], "sequential_differing": int((seq != ref).sum()),
-                              "four_lanes_differing": int((four != ref).sum()),
-                              "of": int(ref.size)})
-    out["se_gate_witness"] = _se_gate_witness()
+        got = xla_dot(torch.from_numpy(a), torch.from_numpy(w)).numpy()
+        out["se_dot"].append({"mkn": [m, k, nn_], "order": list(_xla_dot_order(m, k, nn_)),
+                              "differing": int((got != ref).sum()), "of": int(ref.size)})
+    sums = jax.jit(lambda v: jnp.sum(v, axis=(1, 2)))
+    out["hw_sum"] = []
+    for shape in [(2, 12, 80, 64), (2, 6, 40, 128), (2, 3, 40, 256), (2, 3, 40, 512),
+                  (6, 12, 40, 64), (3, 24, 160, 32)]:
+        x = rng.normal(size=shape).astype(np.float32)
+        got = xla_hw_sum(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+        out["hw_sum"].append({"nhwc": list(shape),
+                              "differing": int((got != np.asarray(sums(x))).sum()),
+                              "of": int(shape[0] * shape[3])})
+    out["lcnet"] = _lcnet_witness()
     return out
 
 
-def _lcnet_unrounded_mean(backbone, x: torch.Tensor) -> torch.Tensor:
-    """The port's LCNet with its final mean over the height taken as the
-    compiled Flax model takes it (read from its optimized HLO): over the
-    last hardswish's float32 product ``bf16(y * clip(y + 3, 0, 6)) *
-    float32(1/6)``, before that product's rounding to bf16."""
-    x = backbone.ConvBNAct_0(x)
-    for name in backbone.blocks[:-1]:
-        x = getattr(backbone, name)(x)
-    blk = getattr(backbone, backbone.blocks[-1])
-    x = blk.ConvBNAct_0(x)
-    if blk.use_se:
-        x = blk.SEModule_0(x)
-    cba = blk.ConvBNAct_1
-    y = cba.BatchNorm_0(cba.Conv_0(x, f32_out=True)).to(torch.bfloat16)
-    act = (y * torch.clamp(y + 3.0, 0.0, 6.0)).float() * (1.0 / 6.0)
-    return mean_f32(act, 2).squeeze(2).to(torch.bfloat16).transpose(1, 2)
-
-
-def _se_gate_witness() -> list[dict]:
-    """The port's LCNet features against Flax's, as they are and with each
-    SEModule fed Flax's gate pre-activation; then each LCNet layer fed the
-    Flax model's own input to it, and the final mean over the height fed
-    Flax's last block output, against the Flax model and against a
-    standalone jitted ``jnp.mean``."""
+def _lcnet_witness() -> list[dict]:
+    """The port's LCNet features and rec output against Flax's, and each
+    LCNet block fed the Flax model's own input to it."""
     jm, tree, tm = _models("rec", j_rec, build_rec)
     lines = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_train.npz")["rec_lines"][:4]
     lines = lines[:, ::-1, ::-1].transpose(0, 3, 1, 2)  # upright, NCHW
@@ -361,8 +338,9 @@ def _se_gate_witness() -> list[dict]:
               np.ascontiguousarray((lines / 255.0 - 0.5) / 0.5, np.float32)}
     res = []
     for label, x in inputs.items():
-        _, state = jax.jit(lambda p, v: jm.apply(p, v, capture_intermediates=True))(
+        probs, state = jax.jit(lambda p, v: jm.apply(p, v, capture_intermediates=True))(
             tree, jnp.asarray(x))
+        probs = np.asarray(probs)
         inter = state["intermediates"]["LCNetBackbone_0"]
 
         def flax(node):
@@ -375,49 +353,18 @@ def _se_gate_witness() -> list[dict]:
         backbone = tm.LCNetBackbone_0
         with torch.no_grad():
             own = backbone(torch.from_numpy(x)).float().numpy()
-            gates = 0
-            for name, mod in backbone.named_modules():
-                if isinstance(mod, SEModule):
-                    node = inter
-                    for part in name.split("."):
-                        node = node[part]
-                    pre = nchw(flax(node["Conv_1"]))
-                    mod.forward = (lambda v, pre=pre: v * hard_sigmoid(pre))
-                    gates += 1
-            try:
-                fed = backbone(torch.from_numpy(x)).float().numpy()
-                fed_mean = _lcnet_unrounded_mean(backbone, torch.from_numpy(x)).float().numpy()
-            finally:
-                for mod in backbone.modules():
-                    if isinstance(mod, SEModule):
-                        del mod.forward
-            layers, prev = {}, flax(inter["ConvBNAct_0"])
+            got = tm(torch.from_numpy(x)).numpy()
+            blocks, prev = {}, flax(inter["ConvBNAct_0"])
             for name in backbone.blocks:
-                blk, node = getattr(backbone, name), inter[name]
-                steps = [("dw", blk.ConvBNAct_0, "ConvBNAct_0")]
-                if blk.use_se:
-                    steps.append(("se", blk.SEModule_0, "SEModule_0"))
-                steps.append(("pw", blk.ConvBNAct_1, "ConvBNAct_1"))
-                for tag, mod, key in steps:
-                    got = mod(nchw(prev)).float().permute(0, 2, 3, 1).numpy()
-                    want = flax(node[key])
-                    n = int((got != want).sum())
-                    if n:
-                        layers[f"{name}.{tag}"] = f"{n} of {want.size}"
-                    prev = want
-            last = inter[backbone.blocks[-1]]["__call__"][0]
-            mean = mean_f32(nchw(np.array(last.astype(jnp.float32))), 2)
-            mean = mean.squeeze(2).to(torch.bfloat16).transpose(1, 2).float().numpy()
-            alone = np.array(jax.jit(lambda v: jnp.mean(v, axis=1))(last).astype(jnp.float32))
-        res.append({"input": label, "se_modules": gates, "of": int(ref.size),
-                    "features_differing": int((own != ref).sum()),
-                    "features_differing_with_flax_gates": int((fed != ref).sum()),
-                    "features_differing_with_flax_gates_and_unrounded_mean": int(
-                        (fed_mean != ref).sum()),
-                    "layers_fed_flax_inputs_differing": layers,
-                    "final_mean_fed_flax_block_differing": int((mean != ref).sum()),
-                    "final_mean_vs_standalone_jnp_mean_differing": int((mean != alone).sum())})
+                out = getattr(backbone, name)(nchw(prev)).float().permute(0, 2, 3, 1).numpy()
+                want = flax(inter[name])
+                blocks[name] = f"{int((out != want).sum())} of {want.size}"
+                prev = want
+        res.append({"input": label, "features_differing": int((own != ref).sum()),
+                    "of": int(ref.size), "blocks_fed_flax_inputs_differing": blocks,
+                    "output_rel_diff": float(np.abs(got - probs).max() / np.abs(probs).max())})
     return res
+
 
 def main() -> None:
     parts = sys.argv[1:] or ["rec", "det"]

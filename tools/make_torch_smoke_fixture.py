@@ -53,10 +53,21 @@ already has and checks nowhere else (``--presets``): ``server_*``, the JAX
 6,625 classes) on 16 rendered big-vocab lines at 48x320 (``big_crops``,
 ``big_widths``; ``big_gt`` the rendered texts, ``big_texts`` JAX's reading).
 
-Run from the repository root (JAX on the CPU, a few minutes; ``--staged``,
-``--train`` and ``--presets`` write only that file):
+``retto_tpu_torch/testdata/smoke_onnx.npz`` holds the ONNX path's
+references (``--onnx``): the JAX ``OnnxEngine`` over the three full-size
+Paddle-export replicas (``weights/replica.py``: det seed 11, cls 12, rec
+13 with 6,625 classes; random weights at matched scales, the det with its
+ink scaffold) and ``charset_big.txt``, on the CPU with
+``transfer_format="yuv420"`` and :func:`onnx_det_config`'s det thresholds:
+``fused_*``, its ``DevicePipeline`` over the 8 gray pages (ids 0-7) and
+the tinted and rotated page 2 (id 8); and ``compat_*``, the staged COMPAT
+``RettoSession.run`` over the 10 staged inputs (flat as the ``jax_*``
+entries).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--staged|--train|--presets]
+Run from the repository root (JAX on the CPU, a few minutes; ``--staged``,
+``--train``, ``--presets`` and ``--onnx`` write only that file):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--staged|--train|--presets|--onnx]
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ OUT = ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz"
 STAGED_OUT = OUT.with_name("smoke_staged.npz")
 TRAIN_OUT = OUT.with_name("smoke_train.npz")
 PRESETS_OUT = OUT.with_name("smoke_presets.npz")
+ONNX_OUT = OUT.with_name("smoke_onnx.npz")
 TRAIN_LR = {"rec": 1.2e-3, "cls": 1e-3, "det": 8e-4}  # tools/train_synthetic.py
 TINT = np.asarray([1.0, 0.94, 0.86], np.float32)
 ROTATE_DEG = 176.0
@@ -285,7 +297,56 @@ def write_presets(pages: np.ndarray) -> None:
     print(f"wrote {PRESETS_OUT.relative_to(ROOT)} ({PRESETS_OUT.stat().st_size} bytes)")
 
 
+def onnx_det_config(cfg):
+    """The det settings of the ONNX references: the replica det's random
+    layers plus its ink scaffold score a glyph body at 0.3-0.5 and a text
+    line's box well below the default ``box_thresh`` of 0.6, so the boxes
+    are kept from 0.2 and the mask is dilated (chip_smoke.py phase onnx
+    sets the same)."""
+    cfg.det.box_thresh = 0.2
+    cfg.det.use_dilation = True
+    return cfg
+
+
+def write_onnx(pages: np.ndarray) -> None:
+    from retto_tpu.config import PipelineMode, SessionConfig
+    from retto_tpu.ops.charset import CharacterDict
+    from retto_tpu.pipeline.onnx_engine import OnnxEngine
+    from retto_tpu.pipeline.session import RettoSession
+    from retto_tpu.weights.replica import (
+        build_cls_replica,
+        build_det_replica,
+        build_rec_replica,
+    )
+
+    wd = ROOT / "trained_weights"
+    chars = CharacterDict((wd / "charset_big.txt").read_text(encoding="utf-8").splitlines())
+    engine = OnnxEngine(det=build_det_replica(), cls=build_cls_replica(),
+                        rec=build_rec_replica())
+    out = {}
+    cfg = onnx_det_config(SessionConfig())
+    cfg.engine.transfer_format = "yuv420"
+    session = RettoSession(cfg, engine=engine, charset=chars)
+    inputs = [np.repeat(p[..., None], 3, axis=2) for p in pages]
+    inputs.append(rotate_page(tint_page(pages[2])))
+    res = session.device_pipeline().run_many(inputs)
+    out["fused_page"], out["fused_boxes"], out["fused_texts"] = _flat(res, range(len(inputs)))
+    session.close()
+    print(f"onnx fused: {len(out['fused_texts'])} lines over {len(inputs)} pages")
+    session = RettoSession(onnx_det_config(SessionConfig(mode=PipelineMode.COMPAT)),
+                           engine=engine, charset=chars)
+    staged = staged_pages(pages)
+    res = [session.run(x) for x in staged]
+    out["compat_page"], out["compat_boxes"], out["compat_texts"] = _flat(res, range(len(staged)))
+    print(f"onnx staged compat: {len(out['compat_texts'])} lines over {len(staged)} pages")
+    np.savez_compressed(ONNX_OUT, **out)
+    print(f"wrote {ONNX_OUT.relative_to(ROOT)} ({ONNX_OUT.stat().st_size} bytes)")
+
+
 def main() -> None:
+    if "--onnx" in sys.argv[1:]:
+        write_onnx(np.load(OUT)["pages"])
+        return
     if "--staged" in sys.argv[1:]:
         write_staged(np.load(OUT)["pages"])
         return
@@ -341,6 +402,7 @@ def main() -> None:
     write_staged(pages)
     write_train()
     write_presets(pages)
+    write_onnx(pages)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Where the time goes in the port's fused pipeline on one CUDA card.
 
 Builds ``retto_tpu_torch.RettoSession`` on ``cuda`` with the mobile
-checkpoints (``transfer_format="yuv420"``), warms it, then runs the
-bench.py config-3 workload (16 gray 960x704 fixture pages, each fixture
-page twice) under ``torch.profiler`` and prints one JSON line:
+checkpoints (``transfer_format="yuv420"``), or with ``--onnx`` the ONNX
+path (``chip_smoke.py``'s ``onnx_session``: ``OnnxEngine`` over the three
+Paddle-export replicas), warms it, then runs the bench.py config-3
+workload (16 gray 960x704 fixture pages, each fixture page twice) under
+``torch.profiler`` and prints one JSON line:
 
 * ``wall_ms``: host clock around one ``run_many`` ending in a synchronize;
 * ``device_busy_ms``: the union of the CUDA kernel and memcpy intervals in
@@ -17,19 +19,22 @@ page twice) under ``torch.profiler`` and prints one JSON line:
 * ``det_epilogue``: the ``db_epilogue`` kernels in that call, the count of
   the wrapper and of the traced kernels, and their device time;
 * ``det_forward_ms``: the det model's forward alone at the 16-page call's
-  chunk shape (4 x 1024 x 768 NHWC, the compute dtype), device time from
-  CUDA events around 20 calls after 10 warm-up calls;
+  chunk shape (4 x 1024 x 768: NHWC in the compute dtype, or NCHW float32
+  for an ONNX det), device time from CUDA events around 20 calls after 10
+  warm-up calls;
 * ``epilogue_alone`` and ``mask_kernel_alone``: the det epilogue as
   ``_det_fwd``'s aligned branch runs it (``db_epilogue``) and its
-  mask-only mode, on seeded [4, 512, 384] bf16 logits: device time per
-  call from a CUDA graph and host time per call, with ``chip_smoke.py``'s
+  mask-only mode, on seeded [4, 512, 384] bf16 logits (``--onnx``: [4,
+  1024, 768] float32 probabilities, pool 4): device time per call from a
+  CUDA graph and host time per call, with ``chip_smoke.py``'s
   ``device_ms`` and ``host_ms``;
 * ``lines_agreeing_with_jax``: the 8 fixture pages of the call against the
-  JAX pipeline's stored lines, counted by ``chip_smoke.py``'s ``compare``.
+  JAX pipeline's stored lines (``--onnx``: the JAX ``OnnxEngine``'s,
+  ``testdata/smoke_onnx.npz``), counted by ``chip_smoke.py``'s ``compare``.
 
 The Chrome trace goes to ``chiprun_out/torch_pipeline_trace<suffix>.json``.
 
-    python3 tools/profile_torch_pipeline.py [--root CHECKOUT] [--label NAME]
+    python3 tools/profile_torch_pipeline.py [--onnx] [--root CHECKOUT] [--label NAME]
 
 ``--root`` imports ``retto_tpu_torch`` from another checkout (for example
 the parent commit unpacked by ``git archive``), so that two trees are
@@ -98,17 +103,26 @@ def _epilogue(events: list) -> tuple[int, float]:
 
 def _det_forward_ms(dp, iters: int = 20) -> float:
     model = dp._det_model
-    dt = getattr(model, "compute_dtype", None) or torch.float32
-    x = torch.randn((4, 1024, 768, 3), device="cuda").to(dt)
+    if getattr(dp, "_det_native", True):
+        dt = getattr(model, "compute_dtype", None) or torch.float32
+        x = torch.randn((4, 1024, 768, 3), device="cuda").to(dt)
+
+        def fwd():
+            return model(x, nhwc=True, raw_logits=True)
+    else:  # a translated ONNX det: NCHW float32 in
+        x = torch.randn((4, 3, 1024, 768), device="cuda")
+
+        def fwd():
+            return model(x)
     with torch.inference_mode():
         for _ in range(10):
-            model(x, nhwc=True, raw_logits=True)
+            fwd()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            model(x, nhwc=True, raw_logits=True)
+            fwd()
         end.record()
         torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -123,17 +137,22 @@ def _chip_smoke():
     return chip_smoke
 
 
-def _epilogue_alone(chip_smoke, db_pack) -> dict:
+def _epilogue_alone(chip_smoke, db_pack, onnx: bool) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pred = (torch.randn(chip_smoke.MAIN_SHAPE, generator=gen, device="cuda") * 3).to(
-        torch.bfloat16)
-    t = chip_smoke.LOGIT_THRESH
+    if onnx:  # float32 probabilities at full resolution, pool 4
+        pred = torch.sigmoid(torch.randn(chip_smoke.ONNX_SHAPE, generator=gen,
+                                         device="cuda") * 3 - 3)
+        t, pool, logits = 0.3, 4, False
+    else:
+        pred = (torch.randn(chip_smoke.MAIN_SHAPE, generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        t, pool, logits = chip_smoke.LOGIT_THRESH, 2, True
 
     def mask():
         return db_pack.binarize_dilate_pack_rows_batch(pred, t, True)
 
     def epilogue():
-        return db_pack.db_epilogue(pred, t, True, 2, True)
+        return db_pack.db_epilogue(pred, t, True, pool, logits)
 
     return {name: {"device_ms": chip_smoke.device_ms(fn), "host_ms": chip_smoke.host_ms(fn)}
             for name, fn in (("epilogue_alone", epilogue), ("mask_kernel_alone", mask))}
@@ -143,6 +162,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(ROOT), help="checkout to import the port from")
     ap.add_argument("--label", default="", help="suffix of the trace file and label of the line")
+    ap.add_argument("--onnx", action="store_true",
+                    help="the ONNX path: chip_smoke.py's replica OnnxEngine session")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -156,18 +177,25 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True).stdout.strip()
     fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
-    chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
-    cfg = SessionConfig()
-    cfg.engine.transfer_format = "yuv420"
-    dp = RettoSession(cfg, charset=chars, weights={
-        k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")
-    }, device="cuda").device_pipeline()
+    if args.onnx:
+        dp = chip_smoke.onnx_session().device_pipeline()
+        ref = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_onnx.npz")
+        keep = ref["fused_page"] < 8
+        ref_lines = (ref["fused_page"][keep], ref["fused_boxes"][keep], ref["fused_texts"][keep])
+    else:
+        chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
+        cfg = SessionConfig()
+        cfg.engine.transfer_format = "yuv420"
+        dp = RettoSession(cfg, charset=chars, weights={
+            k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")
+        }, device="cuda").device_pipeline()
+        ref_lines = (fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
     pages = [np.repeat(p[..., None], 3, axis=2) for p in fx["pages"]] * 2
     for _ in range(2):
         dp.run_many(pages)
     res = dp.run_many(pages)
     agree, total, _ = chip_smoke.compare("gray", chip_smoke._lines(res[:8], range(8)),
-                                         fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
+                                         *ref_lines)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -182,7 +210,7 @@ def main() -> None:
     intervals = [(ev.time_range.start, ev.time_range.end) for ev in dev_events]
     epi_kernels, epi_ms = _epilogue(dev_events)
     det_ms = _det_forward_ms(dp)
-    alone = _epilogue_alone(chip_smoke, db_pack)
+    alone = _epilogue_alone(chip_smoke, db_pack, args.onnx)
     busy_ms = _union_ms(intervals)
     rows = []
     for a in prof.key_averages():
@@ -196,6 +224,7 @@ def main() -> None:
     prof.export_chrome_trace(str(out_dir / f"torch_pipeline_trace{suffix}.json"))
     print(json.dumps({
         "label": args.label,
+        "path": "onnx" if args.onnx else "mobile",
         "root": str(Path(args.root).resolve()),
         "card": smi,
         "pages": len(pages),
