@@ -83,7 +83,25 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    lines (``retto_tpu_torch/testdata/smoke_onnx.npz``) by phase 3's rule
    with at least one box on every page; images/s of warm 16-page calls,
    no capture inside them.  Phase 2 times the kernel at that shape;
-11. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+11. parallel: (a) the fused ``run_many`` on a ``parallel.make_mesh`` that
+   names the card twice (and on every card where there are several) over
+   the 10 fixture inputs, held to the JAX fixture by phase 3's rule and to
+   phase 3's mesh-free results by phase 4's rule; its ``db_epilogue``
+   launches counted from 0 (``mesh_launches`` in the kernels line), and a
+   warm call must launch the kernel once per shard of each det chunk;
+   warm 16-page calls timed with no capture inside, images/s beside the
+   mesh-free figure; (b) the staged ``RettoSession(mesh=)`` in COMPAT and
+   PERFORMANCE against ``smoke_staged.npz`` by phase 5's rule; (c)
+   ``parallel.distributed.initialize`` at world size 1 on NCCL,
+   ``global_mesh()`` (1, 1), and ``PARALLEL_STEPS`` sharded rec steps from
+   ``rec_big.npz`` with the rule ``{"Dense_1": P(None, "model")}`` against
+   the unsharded steps, both under deterministic algorithms (bit-equal or
+   within ``PARALLEL_LOSS_RTOL``/``PARALLEL_PARAM_RTOL``, the ops without a
+   deterministic CUDA path printed); (d) ``python -m
+   retto_tpu_torch.train.train_bigvocab --device cuda`` at
+   ``BIGVOCAB_RUN``: every loss finite, steps/s, and ``rec_big.npz``
+   reloaded into the port with the trained model's probe digest;
+12. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
 ``compile_count()`` (captured graphs) is printed after each phase.
@@ -134,6 +152,9 @@ from retto_tpu_torch.train.data import (  # noqa: E402
     gather_rec_batch,
 )
 from retto_tpu_torch.train.synthetic import _cls_loss_sym, _cls_views  # noqa: E402
+from retto_tpu_torch.train.train_bigvocab import probe_digest  # noqa: E402
+from retto_tpu_torch.parallel import distributed, make_mesh  # noqa: E402
+from retto_tpu_torch.parallel.mesh import P  # noqa: E402
 from retto_tpu_torch.weights import (  # noqa: E402
     export_flax_params, load_flax_params, load_params_meta, save_params,
 )
@@ -178,6 +199,18 @@ TRAIN_BATCH = {"rec": 128, "cls": 128, "det": 8}
 TRAIN_TIMED_STEPS = 10
 # presets: the server pipeline and the big-vocab rec against their JAX
 # fixture (testdata/smoke_presets.npz), by the main path's line rule
+# parallel: the sharded rec step against the unsharded one under
+# deterministic algorithms, both from rec_big.npz on the fixture's rec batch.
+# F.ctc_loss's CUDA backward has no deterministic implementation (atomic
+# adds), so where the two are not bit-equal they must agree to
+# PARALLEL_LOSS_RTOL in each loss and PARALLEL_PARAM_RTOL in each
+# parameter's change (of the change's norm, for the tensors whose change is
+# at least 1% of the largest)
+PARALLEL_STEPS = 3
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_PARAM_RTOL = 1e-3
+# the big-vocab tool's short run: (steps, lines, batch, pipeline pages)
+BIGVOCAB_RUN = (24, 128, 16, 2)
 
 
 def say(phase: str, **kw) -> None:
@@ -524,12 +557,16 @@ def fixture_inputs(fx) -> list[np.ndarray]:
     return pages + [tinted_page(0), rotated]
 
 
-def mobile_session(mode: str = "performance", transfer: str = "yuv420") -> RettoSession:
-    """A session over the shipped mobile checkpoints on the card."""
+def mobile_session(mode: str = "performance", transfer: str = "yuv420",
+                   mesh=None) -> RettoSession:
+    """A session over the shipped mobile checkpoints on the card (or on a
+    mesh of cards)."""
     chars = CharacterDict((ROOT / "trained_weights" / "charset.txt").read_text().splitlines())
     weights = {k: str(ROOT / "trained_weights" / f"{k}.npz") for k in ("det", "cls", "rec")}
     cfg = SessionConfig(mode=PipelineMode(mode))
     cfg.engine.transfer_format = transfer
+    if mesh is not None:
+        return RettoSession(cfg, preset="mobile", charset=chars, weights=weights, mesh=mesh)
     return RettoSession(cfg, preset="mobile", charset=chars, weights=weights, device="cuda")
 
 
@@ -564,11 +601,7 @@ def e2e_phase(fx) -> int:
     graphs_against_eager(calls)
     del calls
     gray = _lines(res[:8], range(len(pages)))
-    eq_g, n_g, d_g = compare("gray", gray, fx["jax_page"], fx["jax_boxes"], fx["jax_texts"])
-    eq_t, n_t, d_t = compare("tinted", _lines(res[8:9], [0]), fx["jax_tinted_page"],
-                             fx["jax_tinted_boxes"], fx["jax_tinted_texts"])
-    eq_o, n_o, d_o = compare("rotated", _lines(res[9:], [2]), fx["jax_rotated_page"],
-                             fx["jax_rotated_boxes"], fx["jax_rotated_texts"])
+    (eq_g, n_g, d_g), (eq_t, n_t, d_t), (eq_o, n_o, d_o) = fixture_agreement("", res, fx)
     rot = res[9]
     flips = sum(c.label == 180 for c in rot.cls_result)
     gathered = sum(not _is_aligned(b.box.pts) for b in rot.det_result)
@@ -631,7 +664,42 @@ def e2e_phase(fx) -> int:
         fail("the timed 16-page runs captured a new graph")
     dp.close()
     dp_rgb.close()
-    return launches
+    return launches, res, len(batch) / med
+
+
+def fixture_agreement(label: str, res, fx):
+    """``compare`` of the 10 fixture inputs' results (gray pages 0-7, the
+    tinted page, the rotated page) with the JAX pipeline's lines in the
+    fixture: (agree, total, dists) per group."""
+    return (
+        compare(f"{label}gray", _lines(res[:8], range(8)), fx["jax_page"], fx["jax_boxes"],
+                fx["jax_texts"]),
+        compare(f"{label}tinted", _lines(res[8:9], [0]), fx["jax_tinted_page"],
+                fx["jax_tinted_boxes"], fx["jax_tinted_texts"]),
+        compare(f"{label}rotated", _lines(res[9:], [2]), fx["jax_rotated_page"],
+                fx["jax_rotated_boxes"], fx["jax_rotated_texts"]),
+    )
+
+
+def same_results(label: str, ref: list, got: list) -> tuple[int, int, float]:
+    """Phase stream's rule, result by result: equal box counts (else fail);
+    returns (lines, equal texts, largest box distance in px) and prints
+    every line whose text differs."""
+    lines = equal = 0
+    box_max = 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        if len(g.det_result) != len(r.det_result):
+            fail(f"{label} page {i}: {len(g.det_result)} boxes, reference {len(r.det_result)}")
+        for rb, gb, rt, gt in zip(r.det_result, g.det_result, r.rec_result, g.rec_result):
+            d = float(np.abs(np.asarray(gb.box.pts) - np.asarray(rb.box.pts)).max())
+            box_max = max(box_max, d)
+            lines += 1
+            if gt.text == rt.text:
+                equal += 1
+            else:
+                print(f"  {label} page {i}: {gt.text!r} vs reference {rt.text!r}, "
+                      f"box {d:.2f} px", flush=True)
+    return lines, equal, box_max
 
 
 def _resized(page: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -686,21 +754,8 @@ def stream_phase(fx) -> None:
         lines = equal = 0
         box_max = 0.0
         for k, out in enumerate(got):
-            ref = seq[k % 2]
-            for i, (r, g) in enumerate(zip(ref, out)):
-                if len(g.det_result) != len(r.det_result):
-                    fail(f"stream batch {k} page {i}: {len(g.det_result)} boxes, "
-                         f"run_many {len(r.det_result)}")
-                for rb, gb, rt, gt in zip(r.det_result, g.det_result, r.rec_result,
-                                          g.rec_result):
-                    d = float(np.abs(np.asarray(gb.box.pts) - np.asarray(rb.box.pts)).max())
-                    box_max = max(box_max, d)
-                    lines += 1
-                    if gt.text == rt.text:
-                        equal += 1
-                    else:
-                        print(f"  stream batch {k} page {i}: stream {gt.text!r} vs "
-                              f"run_many {rt.text!r}, box {d:.2f} px", flush=True)
+            n, e, b = same_results(f"stream batch {k}", seq[k % 2], out)
+            lines, equal, box_max = lines + n, equal + e, max(box_max, b)
         say("stream", lines=lines, texts_equal_to_run_many=f"{equal}/{lines}",
             box_max_px=f"{box_max:.2f}")
         if box_max > STREAM_BOX_PX:
@@ -1120,6 +1175,209 @@ def train_speed(kind: str, fx) -> dict:
     return res
 
 
+def parallel_phase(fx, e2e_res: list, e2e_images_per_s: float) -> dict:
+    """Data and tensor parallelism on the card: (a) the fused ``run_many``
+    over a mesh that names the card twice (and over every card where there
+    are several), against the JAX fixture and the mesh-free run, with the
+    det epilogue once per shard; (b) the staged session over that mesh
+    against the JAX staged lines; (c) ``initialize()`` on NCCL at world size
+    1, ``global_mesh()``, and the sharded rec step from ``rec_big.npz``
+    with the explicit head rule against the unsharded step; (d) the
+    big-vocab tool for a few steps.  Returns the mesh path's launches."""
+    inputs = fixture_inputs(fx)
+    meshes = [("cuda0x2", [torch.device("cuda", 0)] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("all_cards", [torch.device("cuda", i)
+                                     for i in range(torch.cuda.device_count())]))
+    out = {}
+    for name, devices in meshes:
+        mesh = make_mesh(devices=devices)
+        shards = mesh.shape["data"]
+        t = time.perf_counter()
+        session = mobile_session(mesh=mesh)
+        dp = session.device_pipeline()
+        # the mesh path: counts to 0 just before, read just after
+        db_pack.db_epilogue.launches = 0
+        res = dp.run_many(inputs)
+        torch.cuda.synchronize()
+        launches = db_pack.db_epilogue.launches
+        first_s = time.perf_counter() - t
+        db_pack.db_epilogue.launches = 0
+        dp.run_many(inputs)
+        torch.cuda.synchronize()
+        warm = db_pack.db_epilogue.launches
+        chunks = dp.last_stats["chunks"]
+        (eq_g, n_g, d_g), (eq_t, n_t, d_t), (eq_o, n_o, d_o) = fixture_agreement(
+            f"mesh-{name}-", res, fx)
+        agree, total, dists = eq_g + eq_t + eq_o, n_g + n_t + n_o, d_g + d_t + d_o
+        lines, equal, box_max = same_results(f"mesh-{name} vs mesh-free", e2e_res, res)
+        say("parallel", mesh=name, shards=shards, first_call_s=f"{first_s:.3f}",
+            db_epilogue_launches=launches, warm_call_launches=warm, chunks=chunks,
+            lines_agreeing_with_jax=f"{agree}/{total}",
+            box_max_px_vs_jax=f"{max(dists, default=0.0):.2f}",
+            texts_equal_to_mesh_free=f"{equal}/{lines}", box_max_px_vs_mesh_free=f"{box_max:.2f}",
+            compile_count=dp.compile_count())
+        if warm != shards * chunks:
+            fail(f"mesh {name}: {warm} det epilogue launches for {chunks} chunks of "
+                 f"{shards} shards")
+        if total == 0 or agree / total < TEXT_MATCH_MIN or max(dists) > BOX_MAX_PX:
+            fail(f"mesh {name}: {agree}/{total} lines agree with the JAX pipeline")
+        if box_max > STREAM_BOX_PX or not lines or equal / lines < STREAM_TEXT_MIN:
+            fail(f"mesh {name}: {equal}/{lines} texts and boxes within {box_max:.2f} px "
+                 f"of the mesh-free run")
+        batch = inputs[:8] * 2
+        dp.run_many(batch)
+        torch.cuda.synchronize()
+        compiles0 = dp.compile_count()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            dp.run_many(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        med = sorted(times)[2]
+        say("parallel", mesh=name, pages=len(batch), images_per_s_median=f"{len(batch) / med:.3f}",
+            images_per_s_best=f"{len(batch) / min(times):.3f}",
+            images_per_s_worst=f"{len(batch) / max(times):.3f}",
+            mesh_free_images_per_s_median=f"{e2e_images_per_s:.3f}",
+            captures_in_timed_region=dp.compile_count() - compiles0)
+        if dp.compile_count() != compiles0:
+            fail(f"mesh {name}: the timed calls captured a new graph")
+        out[name] = {"launches": launches, "images_per_s": len(batch) / med}
+        session.close()
+    staged_mesh_check(fx, make_mesh(devices=meshes[0][1]))
+    sharded_step_check(fx)
+    out["bigvocab_steps_per_s"] = bigvocab_check()
+    return out
+
+
+def staged_mesh_check(fx, mesh) -> None:
+    """(b) ``RettoSession(mesh=).run`` per mode against the JAX staged
+    session's lines, by phase staged's rule."""
+    ref = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_staged.npz")
+    inputs = fixture_inputs(fx)
+    for mode in ("compat", "performance"):
+        session = mobile_session(mode, mesh=mesh)
+        res = [session.run(x) for x in inputs]
+        agree, total, dists = compare(f"staged-mesh-{mode}", _lines(res, range(len(inputs))),
+                                      ref[f"{mode}_page"], ref[f"{mode}_boxes"],
+                                      ref[f"{mode}_texts"])
+        say("parallel", staged_mode=mode, shards=mesh.shape["data"],
+            lines_agreeing_with_jax_staged=f"{agree}/{total}",
+            box_max_px=f"{max(dists, default=0.0):.2f}",
+            compiled_shapes=json.dumps(session.engine.compiled_shapes()))
+        if total == 0 or agree / total < TEXT_MATCH_MIN or max(dists) > BOX_MAX_PX:
+            fail(f"staged {mode} over the mesh: {agree}/{total} lines agree with JAX")
+
+
+def _sharded_rec_run(mesh, batch) -> tuple[list[float], dict]:
+    """``PARALLEL_STEPS`` steps of the big-vocab rec from ``rec_big.npz``
+    (float32 master weights, bf16 compute) on ``batch``; sharded with the
+    explicit head rule when ``mesh`` is given.  (losses, exported params)."""
+    wd = ROOT / "trained_weights"
+    flat, _ = load_params_meta(wd / "rec_big.npz")
+    model = load_flax_params(build_rec("mobile", num_classes=6625, compute_dtype="bfloat16"),
+                             flat)
+    rules = {"Dense_1": P(None, "model")}
+    state = init_train_state(model, 1e-4, device="cuda", mesh=mesh,
+                             rules=rules if mesh is not None else None)
+    step = make_train_step(model, ctc_loss, forward=lambda m, v: m(v, return_logits=True),
+                           mesh=mesh)
+    losses = []
+    for _ in range(PARALLEL_STEPS):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+    return losses, export_flax_params(model)
+
+
+def sharded_step_check(fx) -> None:
+    """(c) ``initialize()`` at world size 1 on NCCL, ``global_mesh()`` of
+    shape (1, 1), and the sharded rec step (BatchNorm over the 'data'
+    group, every ``Dense_1`` kernel column-split over 'model', the row and
+    column gathers, the gradient average) against the unsharded step, both
+    under ``torch.use_deterministic_algorithms``."""
+    import socket
+    import warnings
+
+    import torch.distributed as tdist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if not distributed.initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=120):
+        fail("distributed.initialize did not form the NCCL group")
+    try:
+        mesh = distributed.global_mesh()
+        if tuple(mesh.shape) != (1, 1) or tdist.get_backend() != "nccl":
+            fail(f"global_mesh {tuple(mesh.shape)} over {tdist.get_backend()}")
+        data = train_data("rec", np.load(ROOT / "retto_tpu_torch" / "testdata" /
+                                         "smoke_train.npz"), "cuda")
+        batch = gather_rec_batch(data, torch.arange(len(data.lines), device="cuda"))
+        start = export_flax_params(load_flax_params(
+            build_rec("mobile", num_classes=6625, compute_dtype="bfloat16"),
+            load_params_meta(ROOT / "trained_weights" / "rec_big.npz")[0]))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            s_losses, s_params = _sharded_rec_run(mesh, batch)
+            u_losses, u_params = _sharded_rec_run(None, batch)
+        torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w.message).split(" does not")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        bit_equal = s_losses == u_losses and all(np.array_equal(s_params[k], u_params[k])
+                                                 for k in u_params)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses, u_losses))
+        moved = {k: float(np.linalg.norm(u_params[k] - start[k])) for k in u_params
+                 if k.startswith("params::")}
+        floor = 1e-2 * max(moved.values())  # below it a change is Adam on roundoff
+        param_rel = max(float(np.linalg.norm(s_params[k] - u_params[k])) / m
+                        for k, m in moved.items() if m >= floor)
+        say("parallel", nccl_world=tdist.get_world_size(), global_mesh=tuple(mesh.shape),
+            sharded_step_losses=[round(v, 6) for v in s_losses],
+            unsharded_losses=[round(v, 6) for v in u_losses], bit_equal=bit_equal,
+            loss_rel_diff=f"{loss_rel:.2e}", param_change_rel_diff=f"{param_rel:.2e}",
+            nondeterministic_ops=json.dumps(nondet))
+        if not all(math.isfinite(v) for v in s_losses):
+            fail(f"the sharded step's losses are not finite: {s_losses}")
+        if not bit_equal and (loss_rel > PARALLEL_LOSS_RTOL or param_rel > PARALLEL_PARAM_RTOL):
+            fail("the sharded rec step differs from the unsharded step")
+    finally:
+        tdist.destroy_process_group()
+
+
+def bigvocab_check() -> float:
+    """(d) ``python -m retto_tpu_torch.train.train_bigvocab --device cuda``
+    for a few steps: every loss finite, the npz reloads into the port with
+    the trained model's outputs (its probe digest); returns its steps/s."""
+    steps, lines, batch, pages = BIGVOCAB_RUN
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = Path(tmp) / "weights"
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "retto_tpu_torch.train.train_bigvocab", "--device", "cuda",
+             "--steps", str(steps), "--data-n", str(lines), "--batch", str(batch),
+             "--pipe-pages", str(pages), "--out", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"train_bigvocab exited {r.returncode}: {r.stderr[-2000:]}")
+        text = r.stdout
+        if f"non-finite losses: 0 of {steps}" not in text:
+            fail(f"train_bigvocab: a loss was not finite:\n{text[-2000:]}")
+        rate = float(text.split("steps_per_s ", 1)[1].split()[0])
+        digest = text.split("[big] probe_digest ", 1)[1].split()[0]
+        flat, _ = load_params_meta(out / "rec_big.npz")
+        model = load_flax_params(build_rec("mobile", num_classes=6625,
+                                           compute_dtype="bfloat16"), flat).to("cuda").eval()
+        reloaded = probe_digest(model, torch.device("cuda"))
+    say("parallel", bigvocab_steps=steps, bigvocab_batch=batch, bigvocab_steps_per_s=f"{rate:.3f}",
+        bigvocab_wall_s=f"{wall:.1f}", probe_digest=digest, reloaded_digest=reloaded)
+    if reloaded != digest:
+        fail("the big-vocab checkpoint reloads with other outputs than the trained model's")
+    return rate
+
+
 def presets_phase() -> None:
     """The server preset through the fused pipeline on the 8 gray fixture
     pages, and the big-vocab rec alone on 16 crops at 48x320, each against
@@ -1308,7 +1566,7 @@ def main() -> None:
     build()
     k = kernel_phase()
     fx = np.load(ROOT / "retto_tpu_torch" / "testdata" / "smoke_pages.npz")
-    launches = e2e_phase(fx)
+    launches, e2e_res, e2e_images_per_s = e2e_phase(fx)
     stream_phase(fx)
     sessions = {m: mobile_session(m) for m in ("compat", "performance")}
     staged = staged_phase(fx, sessions)
@@ -1319,6 +1577,9 @@ def main() -> None:
     presets_phase()
     train = train_phase()
     onnx_launches = onnx_phase(fx)
+    t = time.perf_counter()
+    par = parallel_phase(fx, e2e_res, e2e_images_per_s)
+    say("parallel", phase_s=f"{time.perf_counter() - t:.1f}")
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",
@@ -1328,6 +1589,7 @@ def main() -> None:
         "launches": launches,
         "server_launches": serve_launches,
         "onnx_launches": onnx_launches,
+        "mesh_launches": par["cuda0x2"]["launches"],
         "exact": True,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],

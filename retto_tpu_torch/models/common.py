@@ -425,12 +425,20 @@ class BatchNorm(nn.Module):
     by the batch's float32 statistics over (N, H, W) in flax's fast-variance
     form, ``var = max(0, E[x^2] - E[x]^2)`` (``_compute_stats``), and
     updates ``ra = momentum * ra + (1 - momentum) * batch`` with that biased
-    variance (``F.batch_norm`` would update with the unbiased one)."""
+    variance (``F.batch_norm`` would update with the unbiased one).
+
+    ``stats_group``: in sharded training (``train.trainer`` with a mesh) the
+    process group of the 'data' axis, over which the batch is split in
+    equal shards.  The statistics are then the global batch's, as under
+    XLA's SPMD step: the shards' E[x] and E[x^2] are averaged over the
+    group by an autograd-aware all-reduce before the variance is formed.
+    None (the default) keeps the single-device arithmetic."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.stats_group = None
         self.training = False
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
@@ -441,7 +449,14 @@ class BatchNorm(nn.Module):
         if self.training:
             x32 = x.float()
             mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+            if self.stats_group is not None:
+                import torch.distributed as dist
+                from torch.distributed.nn.functional import all_reduce
+
+                both = all_reduce(torch.cat([mean, mean2]), group=self.stats_group)
+                mean, mean2 = (both / dist.get_world_size(self.stats_group)).chunk(2)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

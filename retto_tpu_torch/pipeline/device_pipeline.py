@@ -30,16 +30,31 @@ and normalize in float32 and returns a full-resolution probability map,
 which the det epilogue thresholds at ``det.thresh`` and pools by 4
 (device_pipeline.py:340-355, 446-464, 489-495).
 
-Differences from the JAX pipeline, all of them scheduling:
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh`` that this process
+drives), as in the JAX pipeline (device_pipeline.py:250-273, 470-481,
+779-836): det and crop batch buckets round up to multiples of the mesh's
+'data' size; each det chunk's rows split over the 'data' devices, and the
+det forward and the det epilogue kernel run once per shard, on that
+shard's device (the ``shard_map`` of the JAX kernel); each shard's image
+tensor is then gathered whole onto every 'data' device, so a crop warp can
+index any image of the chunk; each cls + rec bucket splits over 'data'
+the same way; the maps and the results come back to the host per shard
+and join in row order.  Every distinct device holds a replica of the three
+models, its own graph caches (a graph replays only on the card that
+captured it) and its own pinned staging.  Shards on one device share that
+device's graphs: each replay's outputs are copied (image tensor) or sent
+to the host right behind it on the device's stream, before the next
+replay overwrites them.  The 'model' axis replicates, as in JAX.  A mesh
+may name a device twice: on one card, ``[cuda:0, cuda:0]`` runs two shards
+per chunk on that card.
 
-* every dispatch (det, cls + rec, the crop concat) and every capture runs
-  under one lock on the device's current stream, so the upload thread
-  and the calling thread take turns where XLA dispatches from both at
-  once; the uploads ride on that stream too, not on a stream of their own.
-  The lock is the owning session's dispatch lock (``lock=``), which its
-  staged ``TorchEngine`` holds around every forward too;
-* ``DevicePipeline(mesh=)`` (data parallelism over several cards) is not
-  ported.
+Differences from the JAX pipeline, all of them scheduling: every dispatch
+(det, cls + rec, the crop concat) and every capture runs under one lock,
+on the current stream of the device it runs on, so the upload thread and
+the calling thread take turns where XLA dispatches from both at once; the
+uploads ride on that stream too, not on a stream of their own.  The lock
+is the owning session's dispatch lock (``lock=``), which its staged
+``TorchEngine`` holds around every forward too, its replicas' included.
 
 Precision (stated here because a device changes it): contractions run in
 the det model's compute dtype (bf16 for the shipped checkpoints); the BGR
@@ -65,7 +80,6 @@ import numpy as np
 import torch
 
 from ..config import SessionConfig, rot180_label_perm
-from ..device import resolve_device
 from ..errors import RettoError
 from ..geometry import PointBox, scale_and_clip
 from ..image.io import ImageHelper, decode_image, perspective_coeffs
@@ -88,7 +102,8 @@ from ..results import (
     StageResult,
 )
 from ..utils.metrics import PipelineMetrics
-from .graphs import GraphCache
+from ..parallel.mesh import mesh_devices, replicate_module
+from .graphs import GraphCache, on_device
 from .stages import _bucket_up, _next_bucket, det_input_dims
 
 __all__ = ["DevicePipeline"]
@@ -185,8 +200,8 @@ class _Chunk:
     key: tuple  # (upload Hp, Wp, det dh, dw, plane format)
     idxs: list[int]
     upload_fut: Any = None  # -> (fetch future, rgb, valids_src, bytes_up)
-    rgb: Any = None
-    valids_src: Any = None
+    rgb: Any = None  # the chunk's image tensor on each 'data' device
+    valids_src: Any = None  # and its valid extents, likewise
 
 
 def _score_candidates(prob_small: np.ndarray, quads: np.ndarray) -> np.ndarray:
@@ -244,9 +259,35 @@ class _Staging:
             slots.append(slot)
         slot[0].numpy()[...] = arr
         out = slot[0].to(device, non_blocking=True)
+        # the copy runs on the target device's current stream: the event
+        # goes behind it there, whichever device is current
         slot[1] = torch.cuda.Event()
-        slot[1].record()
+        slot[1].record(torch.cuda.current_stream(device))
         return out
+
+
+class _Replica:
+    """What one 'data' device holds: the three models, the constants the
+    forwards read, its graph caches and its pinned staging."""
+
+    def __init__(self, device: torch.device, det: torch.nn.Module, cls: torch.nn.Module,
+                 rec: torch.nn.Module, config: SessionConfig):
+        self.device = device
+        self.det, self.cls, self.rec = det, cls, rec
+        self.cls_label = torch.tensor([int(v) for v in config.cls.label],
+                                      dtype=torch.int32, device=device)
+        self.cls_perm = (
+            torch.tensor(rot180_label_perm(config.cls.label), device=device)
+            if config.cls.symmetrize else None
+        )
+        # on the device once: a host-to-device copy cannot run inside a
+        # CUDA-graph capture
+        f32 = dict(dtype=torch.float32, device=device)
+        self.det_norm = tuple(torch.tensor(v, **f32) for v in (
+            config.det.mean, config.det.std, config.det.scale))
+        self.det_graphs = GraphCache(device)
+        self.clsrec_graphs = GraphCache(device)
+        self.staging = _Staging() if device.type == "cuda" else None
 
 
 def _pad_concat(th: int, tw: int, xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -268,8 +309,10 @@ def _pad_concat(th: int, tw: int, xs: Sequence[torch.Tensor]) -> torch.Tensor:
 class DevicePipeline:
     """Fused det -> cls -> rec over ``run_many``/``run``/``run_stream``/
     ``stream``.  The models are ``nn.Module``s already on ``device`` in eval
-    mode (``RettoSession`` builds them).  ``close()`` (or the context
-    manager) shuts the host threads down."""
+    mode (``RettoSession`` builds them).  ``device`` defaults to ``"cuda"``
+    (raises without a card); with ``mesh=`` the devices are the mesh's
+    'data' devices and the models are on the first.  ``close()`` (or the
+    context manager) shuts the host threads down."""
 
     def __init__(
         self,
@@ -278,12 +321,14 @@ class DevicePipeline:
         rec_model: torch.nn.Module,
         config: SessionConfig,
         chars: CharacterDict,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         metrics: PipelineMetrics | None = None,
         lock: threading.RLock | None = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        devices = mesh_devices(mesh, device)
+        self.device = devices[0]
+        if any(d.type == "cuda" for d in devices):
             # the float32 paths (normalize, gather-warp homographies, f32
             # presets) must not drop to TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,37 +352,38 @@ class DevicePipeline:
                             if self._det_native else 1)
         self._det_dtype = ((getattr(det_model, "compute_dtype", None) or torch.float32)
                            if self._det_native else torch.float32)
-        self._cls_label = torch.tensor([int(v) for v in config.cls.label],
-                                       dtype=torch.int32, device=self.device)
-        self._cls_perm = (
-            torch.tensor(rot180_label_perm(config.cls.label), device=self.device)
-            if config.cls.symmetrize else None
-        )
-        # on the device once: a host-to-device copy cannot run inside a
-        # CUDA-graph capture
-        f32 = dict(dtype=torch.float32, device=self.device)
-        self._det_norm = tuple(torch.tensor(v, **f32) for v in (
-            config.det.mean, config.det.std, config.det.scale))
+        # one replica per distinct device; _shards[k] serves 'data' index k
+        reps = {self.device: _Replica(self.device, det_model, cls_model, rec_model, config)}
+        for d in devices:
+            if d not in reps:
+                reps[d] = _Replica(d, *(replicate_module(m, d) for m in
+                                        (det_model, cls_model, rec_model)), config)
+        self._replicas = list(reps.values())
+        self._shards = [reps[d] for d in devices]
+        self._data_size = len(devices)
+        # the first device's caches (tests and chip_smoke.py read them)
+        self._det_graphs = self._replicas[0].det_graphs
+        self._clsrec_graphs = self._replicas[0].clsrec_graphs
         # every model dispatch and capture holds the session's dispatch lock
         # (see the module docstring); the upload thread streams chunks in
         # call order, the fetch threads wait for the det maps' copies
         self._lock = lock if lock is not None else threading.RLock()
-        self._det_graphs = GraphCache(self.device)
-        self._clsrec_graphs = GraphCache(self.device)
-        self._staging = _Staging() if self.device.type == "cuda" else None
         self._upload_pool = ThreadPoolExecutor(max_workers=1)
         self._fetch_pool = ThreadPoolExecutor(max_workers=2)
         self._sid = 0  # monotone _prepare state counter (stream keys)
         self.pad_concats = 0  # accumulator flushes that padded mixed shapes
 
     # ------------------------------------------------------------------ #
-    def _det_fwd(self, planes, valid_src, valid_det, dh: int, dw: int, fmt: str):
+    def _det_fwd(self, planes, valid_src, valid_det, dh: int, dw: int, fmt: str,
+                 rep: _Replica | None = None):
         """Device-side resize_either to the (dh, dw) det canvas, BGR
         normalize, det forward, fused binarize+dilate+bitpack, pooled prob
-        map (device_pipeline.py:356-496).  ``planes`` by ``fmt``: "rgb"
-        (u8 [B,Hp,Wp,3]), "yuv420" (y [B,Hp,Wp] + uv [B,Hp/2,Wp/2,2]) or
-        "gray" (y [B,Hp,Wp]).  Also returns the session-resolution u8 image
-        tensor the crop warps read (one channel for gray)."""
+        map (device_pipeline.py:356-496), with ``rep``'s models (default the
+        first device's).  ``planes`` by ``fmt``: "rgb" (u8 [B,Hp,Wp,3]),
+        "yuv420" (y [B,Hp,Wp] + uv [B,Hp/2,Wp/2,2]) or "gray" (y
+        [B,Hp,Wp]).  Also returns the session-resolution u8 image tensor the
+        crop warps read (one channel for gray)."""
+        rep = rep or self._shards[0]
         det_cfg = self.cfg.det
         det_dtype = self._det_dtype
         vs = valid_src.to(torch.float32)
@@ -380,14 +426,14 @@ class DevicePipeline:
         # x*scale - mean into a fused multiply-add (one rounding); the
         # product of f32 operands is exact in f64, so computing that step
         # in f64 and rounding to f32 reproduces it on any device.
-        mean, std, scale = self._det_norm
+        mean, std, scale = rep.det_norm
         x = (x.to(torch.float64) * scale.double() - mean.double()).to(torch.float32)
         x = (x / std).to(det_dtype)
         s = self._det_stride
         if self._det_native:
-            pred = self._det_model(x, nhwc=True, raw_logits=s > 1)
+            pred = rep.det(x, nhwc=True, raw_logits=s > 1)
         else:  # f32 NCHW in, probabilities out (device_pipeline.py:446-454)
-            pred = self._det_model(x.permute(0, 3, 1, 2).contiguous())
+            pred = rep.det(x.permute(0, 3, 1, 2).contiguous())
         mh, mw = dh // s, dw // s
         dilate = det_cfg.use_dilation and det_cfg.dilation_kernel is not None
         pred_map = pred[:, 0]
@@ -422,14 +468,17 @@ class DevicePipeline:
         valid_hw: torch.Tensor,
         out_w: int,
         use_cls: bool,
+        rep: _Replica | None = None,
     ):
         """Fused cls + rec for one rec width bucket
-        (device_pipeline.py:508-675).  The cls-driven 180-degree rotation
+        (device_pipeline.py:508-675), with ``rep``'s models (default the
+        first device's).  The cls-driven 180-degree rotation
         selects the host-precomputed flipped sampling geometry on the
         device, so rec never waits on a cls round trip.  [N, 4] geometry
         (ox, sx, oy, sy) takes the separable warp with ONE shared vertical
         pass for the cls, rec and both flipped views; [N, 3, 3]
         homographies take the gather warp."""
+        rep = rep or self._shards[0]
         cfg = self.cfg
         _, ch, cw = cfg.cls.image_shape
         _, rh, _ = cfg.rec.image_shape
@@ -498,14 +547,14 @@ class DevicePipeline:
                 return gwarp(rec_homogs, rh, out_w)
 
         if use_cls:
-            probs = self._cls_model(to3(norm_nchw(warp_cls(), cls_widths)))
-            if self._cls_perm is not None:
+            probs = rep.cls(to3(norm_nchw(warp_cls(), cls_widths)))
+            if rep.cls_perm is not None:
                 # orientation-symmetrized score (ClsConfig.symmetrize)
-                probs2 = self._cls_model(to3(norm_nchw(warp_cls_flip(), cls_widths)))
-                probs = 0.5 * (probs + probs2[:, self._cls_perm])
+                probs2 = rep.cls(to3(norm_nchw(warp_cls_flip(), cls_widths)))
+                probs = 0.5 * (probs + probs2[:, rep.cls_perm])
             idx = torch.argmax(probs, dim=-1)
             score = torch.amax(probs, dim=-1)
-            flip = (self._cls_label[idx] == 180) & (score >= cfg.cls.thresh)
+            flip = (rep.cls_label[idx] == 180) & (score >= cfg.cls.thresh)
             if aligned:
                 xr_up = norm_nchw(warp_rec(), rec_widths)
                 xr_fl = norm_nchw(warp_rec_flip(), rec_widths)
@@ -517,11 +566,11 @@ class DevicePipeline:
                 geo = torch.where(flip.reshape(-1, 1, 1), rec_flip_homogs, rec_homogs)
                 xr = to3(norm_nchw(gwarp(geo, rh, out_w), rec_widths))
         else:
-            probs = torch.zeros((n, self._cls_label.shape[0]), dtype=torch.float32,
+            probs = torch.zeros((n, rep.cls_label.shape[0]), dtype=torch.float32,
                                 device=imgs_u8.device)
             flip = torch.zeros((n,), dtype=torch.bool, device=imgs_u8.device)
             xr = to3(norm_nchw(warp_rec(), rec_widths))
-        rec_probs = self._rec_model(xr)
+        rec_probs = rep.rec(xr)
         valid_t = None
         if cfg.rec.mask_pad_timesteps:
             t_steps = rec_probs.shape[1]
@@ -553,9 +602,9 @@ class DevicePipeline:
     def compile_count(self) -> int:
         """Captured graphs (on a CPU device: static-buffer entries) over the
         det forward and the cls + rec buckets; JAX's count of jit-cache
-        entries (device_pipeline.py:1005-1018).  A timed region that adds
-        to it captured inside the timing."""
-        return len(self._det_graphs) + len(self._clsrec_graphs)
+        entries (device_pipeline.py:1005-1018), over every device's caches.
+        A timed region that adds to it captured inside the timing."""
+        return sum(len(r.det_graphs) + len(r.clsrec_graphs) for r in self._replicas)
 
     def run_many(
         self,
@@ -677,42 +726,61 @@ class DevicePipeline:
             planes = (pad(px),)
         return im, planes
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor.  On CUDA through a pinned staging
-        buffer, without blocking the host; the caller holds the lock."""
-        if self._staging is None:
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-        return self._staging.put(arr, self.device)
+    @staticmethod
+    def _put(arr: np.ndarray, rep: _Replica) -> torch.Tensor:
+        """Host array -> tensor on ``rep``'s device.  On CUDA through its
+        pinned staging buffers, without blocking the host; the caller holds
+        the lock."""
+        if rep.staging is None:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(rep.device)
+        return rep.staging.put(arr, rep.device)
 
-    def _to_host(self, tensors: Sequence[torch.Tensor]) -> tuple[list, Any]:
-        """Enqueue copies of ``tensors`` to the host right behind the work
-        that wrote them (pinned buffers, an event behind the copies): the
-        graphs' static outputs are overwritten by the key's next replay.
-        ``_host`` completes them."""
-        if self.device.type != "cuda":
+    def _batch_bucket(self, n: int, buckets: Sequence[int]) -> int:
+        """The batch bucket of ``n`` rows, rounded up to a multiple of the
+        'data' size (device_pipeline.py:786-790)."""
+        ds = self._data_size
+        return -(-_next_bucket(n, buckets) // ds) * ds
+
+    @staticmethod
+    def _to_host(tensors: Sequence[torch.Tensor]) -> tuple[list, Any]:
+        """Enqueue copies of ``tensors`` (all on one device) to the host
+        right behind the work that wrote them, on that device's current
+        stream (pinned buffers, an event behind the copies): the graphs'
+        static outputs are overwritten by the key's next replay.  ``_host``
+        completes them."""
+        dev = tensors[0].device
+        if dev.type != "cuda":
             return [t.clone() for t in tensors], None
         hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
         for h, t in zip(hosts, tensors):
             h.copy_(t, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(dev))
         return hosts, ev
 
     @staticmethod
-    def _host(pending: tuple[list, Any]) -> list[np.ndarray]:
-        hosts, ev = pending
-        if ev is not None:
-            ev.synchronize()
-        return [h.numpy() for h in hosts]
+    def _host(pendings: list[tuple[list, Any]]) -> list[np.ndarray]:
+        """Complete each shard's copies (``_to_host``) and join the shards
+        in row order."""
+        parts = []
+        for hosts, ev in pendings:
+            if ev is not None:
+                ev.synchronize()
+            parts.append([h.numpy() for h in hosts])
+        if len(parts) == 1:
+            return parts[0]
+        return [np.concatenate(xs) for xs in zip(*parts)]
 
     @torch.inference_mode()
     def _upload_and_det(self, chunk: _Chunk, imgs: list[_Img],
                         pixels: list[tuple[np.ndarray, ...]], nb: int):
-        """Runs on the upload thread: stack the pre-padded planes, upload,
-        dispatch the det forward, enqueue the det maps' copies to the host
-        and hand their completion to a fetch thread
-        (device_pipeline.py:791-840).  Counters are returned, never added
-        into the shared stats dict from this thread."""
+        """Runs on the upload thread: stack the pre-padded planes; per
+        'data' shard of the rows, upload, dispatch the det forward on the
+        shard's device and enqueue its det maps' copies to the host; gather
+        the image tensor whole onto every device; hand the copies'
+        completion to a fetch thread (device_pipeline.py:791-840).
+        Counters are returned, never added into the shared stats dict from
+        this thread."""
         hp, wp, dh, dw, fmt = chunk.key
         planes_np = []
         for p in range(len(pixels[0])):
@@ -726,18 +794,30 @@ class DevicePipeline:
         for k, im in enumerate(imgs):
             valids_src[k] = (im.ah, im.aw)
             valids_det[k] = (im.rh, im.rw)
+        per = nb // self._data_size
+        pending, rgbs = [], []
         with self._lock:
-            planes = tuple(self._put(b) for b in planes_np)
-            vs = self._put(valids_src)
-            vd = self._put(valids_det)
-            key = (tuple(tuple(p.shape) for p in planes), dh, dw, fmt)
-            packed, prob_small, rgb = self._det_graphs.run(
-                key, lambda *t: self._det_fwd(t[:-2], t[-2], t[-1], dh, dw, fmt),
-                *planes, vs, vd)
-            # the graph's outputs belong to the next chunk of this key: the
-            # image tensor waits in the crop accumulator, so it is cloned
-            rgb = rgb.clone()
-            pending = self._to_host((packed, prob_small))
+            for k, rep in enumerate(self._shards):
+                rows = slice(k * per, (k + 1) * per)
+                with on_device(rep.device):
+                    planes = tuple(self._put(b[rows], rep) for b in planes_np)
+                    vs = self._put(valids_src[rows], rep)
+                    vd = self._put(valids_det[rows], rep)
+                    key = (tuple(tuple(p.shape) for p in planes), dh, dw, fmt)
+                    packed, prob_small, rgb = rep.det_graphs.run(
+                        key, lambda *t, rep=rep: self._det_fwd(t[:-2], t[-2], t[-1], dh, dw,
+                                                               fmt, rep),
+                        *planes, vs, vd)
+                    # the graph's outputs belong to the next replay of this
+                    # key (the next shard or chunk): the image tensor waits
+                    # in the crop accumulator, so it is cloned
+                    rgbs.append(rgb.clone())
+                    pending.append(self._to_host((packed, prob_small)))
+            # crop warps index any image of the chunk: every device gets the
+            # whole image tensor and the valid extents (device_pipeline.py:825-828)
+            rgb = {r.device: torch.cat([x.to(r.device) for x in rgbs]) if len(rgbs) > 1
+                   else rgbs[0] for r in self._replicas}
+            vs = {r.device: self._put(valids_src, r) for r in self._replicas}
         fetch_fut = self._fetch_pool.submit(self._host, pending)
         return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np)
 
@@ -766,7 +846,7 @@ class DevicePipeline:
             ch = _Chunk(key, idxs)
             for k, i in enumerate(idxs):
                 imgs[i].row = k
-            nb = _next_bucket(len(idxs), bk.det_batch_buckets)
+            nb = self._batch_bucket(len(idxs), bk.det_batch_buckets)
             self.metrics.record_batch("det_batch", len(idxs), nb)
             stats["dispatches"] += 1
             ch.upload_fut = self._upload_pool.submit(
@@ -818,14 +898,15 @@ class DevicePipeline:
             if len(a["chunks"]) == 1:
                 rgb, vs = a["chunks"][0]
             else:
-                hs = {int(c[0].shape[1]) for c in a["chunks"]}
-                ws = {int(c[0].shape[2]) for c in a["chunks"]}
-                if len(hs) == 1 and len(ws) == 1:
-                    rgb = torch.cat([c[0] for c in a["chunks"]])
-                else:
-                    rgb = _pad_concat(max(hs), max(ws), [c[0] for c in a["chunks"]])
-                    self.pad_concats += 1
-                vs = torch.cat([c[1] for c in a["chunks"]])
+                shapes = {tuple(c[0][self.device].shape[1:3]) for c in a["chunks"]}
+                th, tw = (max(x[i] for x in shapes) for i in (0, 1))
+                self.pad_concats += len(shapes) > 1
+                rgb, vs = {}, {}
+                for r in self._replicas:  # on every device alike
+                    with on_device(r.device):
+                        xs = [c[0][r.device] for c in a["chunks"]]
+                        rgb[r.device] = _pad_concat(th, tw, xs) if len(shapes) > 1 else torch.cat(xs)
+                        vs[r.device] = torch.cat([c[1][r.device] for c in a["chunks"]])
             handles.extend(self._dispatch_clsrec(rgb, vs, a["crops"], a["stats"]))
 
     @torch.inference_mode()
@@ -917,12 +998,13 @@ class DevicePipeline:
                 # keyed by channel count only: chunks of other upload shapes
                 # meet in the device pad + concat of _flush_acc; gray (1
                 # channel) and color (3) cannot concat
-                key = (int(ch.rgb.shape[-1]),)
+                img = ch.rgb[self.device]
+                key = (int(img.shape[-1]),)
                 a = acc.setdefault(key, {"chunks": [], "crops": [], "rows": 0})
                 a["stats"] = stats  # dispatches bill the flushing batch
                 base = a["rows"]
                 a["chunks"].append((ch.rgb, ch.valids_src))
-                a["rows"] += int(ch.rgb.shape[0])
+                a["rows"] += int(img.shape[0])
                 a["crops"].extend((c, base) for c in chunk_crops)
                 if len(a["crops"]) >= 64:
                     self._flush_acc(acc, key, handles)
@@ -1058,16 +1140,19 @@ class DevicePipeline:
         bot_b = q[3] + b * (q[2] - q[3])
         return np.stack([top_a, top_b, bot_b, bot_a])
 
-    def _dispatch_clsrec(self, rgb: torch.Tensor, valids_src: torch.Tensor,
+    def _dispatch_clsrec(self, rgb: dict, valids_src: dict,
                          crops: list[tuple[_CropTask, int]], stats: dict):
         """One fused cls+rec dispatch per rec width bucket (and per warp
         kind).  Lines wider than the largest bucket split into k uniformly
         spaced overlapping segments of the max width; the flipped reading
         of segment s samples the mirrored segment
-        (device_pipeline.py:1317-1478).  Each bucket runs as one captured
-        graph, keyed (image tensor shape, batch bucket, width, use_cls, warp
-        kind).  Returns (entries, pending host copies) handles; entries are
-        (crop, seg, k, x0, natural, rec_width).  The caller holds the lock."""
+        (device_pipeline.py:1317-1478).  Each bucket's rows split over the
+        'data' shards; each shard runs as one captured graph on its device
+        over that device's image tensor (``rgb`` and ``valids_src`` by
+        device), keyed (image tensor shape, shard batch, width, use_cls,
+        warp kind).  Returns (entries, pending host copies per shard)
+        handles; entries are (crop, seg, k, x0, natural, rec_width).  The
+        caller holds the lock."""
         cfg = self.cfg
         bk = cfg.buckets
         _, ch_h, cw = cfg.cls.image_shape
@@ -1124,7 +1209,7 @@ class DevicePipeline:
                             fwd_g.append(self._quad_homog(sub, seg_w, rh))
                             flip_g.append(self._quad_homog(sub_m, seg_w, rh, rot180=True))
                     geos = [np.asarray(g, np.float32) for g in (cls_g, clsf_g, fwd_g, flip_g)]
-                    nb = _next_bucket(len(items), bk.rec_batch_buckets)
+                    nb = self._batch_bucket(len(items), bk.rec_batch_buckets)
                     if nb > len(items):
                         pad = nb - len(items)
                         if aligned:
@@ -1142,20 +1227,25 @@ class DevicePipeline:
                         bw * len(items),
                     )
                     stats["dispatches"] += 1
-                    cls_geo, cls_flips, rec_geo, rec_flips = (self._put(g) for g in geos)
                     use_cls = bool(cfg.use_cls)
-                    out = self._clsrec_graphs.run(
-                        (tuple(rgb.shape), nb, bw, use_cls, aligned),
-                        lambda *t, bw=bw, use_cls=use_cls: self._clsrec_fwd(
-                            *t, out_w=bw, use_cls=use_cls),
-                        rgb,
-                        self._put(np.asarray(rows, np.int64)),
-                        cls_geo, cls_flips,
-                        self._put(np.asarray(cls_widths, np.int32)),
-                        rec_geo, rec_flips,
-                        self._put(np.asarray(rec_widths, np.int32)),
-                        valids_src,
-                    )
-                    # the graph's outputs belong to the next replay of this key
-                    handles.append((items, self._to_host(out)))
+                    host = [np.asarray(rows, np.int64), np.asarray(cls_widths, np.int32),
+                            np.asarray(rec_widths, np.int32), *geos]
+                    per = nb // self._data_size
+                    pending = []
+                    for k, rep in enumerate(self._shards):
+                        part = slice(k * per, (k + 1) * per)
+                        with on_device(rep.device):
+                            rows_t, cls_w, rec_w, cls_geo, cls_flips, rec_geo, rec_flips = (
+                                self._put(h[part], rep) for h in host)
+                            img = rgb[rep.device]
+                            out = rep.clsrec_graphs.run(
+                                (tuple(img.shape), per, bw, use_cls, aligned),
+                                lambda *t, bw=bw, use_cls=use_cls, rep=rep: self._clsrec_fwd(
+                                    *t, out_w=bw, use_cls=use_cls, rep=rep),
+                                img, rows_t, cls_geo, cls_flips, cls_w, rec_geo, rec_flips,
+                                rec_w, valids_src[rep.device],
+                            )
+                            # the graph's outputs belong to the next replay of this key
+                            pending.append(self._to_host(out))
+                    handles.append((items, pending))
         return handles

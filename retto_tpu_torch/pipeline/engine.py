@@ -10,7 +10,10 @@ the reference's signatures:
 
 ``TorchEngine`` runs the port's ``nn.Module`` forwards eagerly, one call
 per input shape; ``compiled_shapes()`` counts the distinct shapes each
-stage has seen, the analog of ``JaxEngine``'s jit-cache sizes.
+stage has seen, the analog of ``JaxEngine``'s jit-cache sizes.  With
+``mesh=`` (``parallel.mesh``) each forward's batch is split over the mesh's
+'data' devices, each device runs its own replica of the model, and the
+outputs come back concatenated in row order (engine.py:38-42, 82-89).
 ``FakeEngine`` gives deterministic closed-form outputs, so pipeline logic
 is testable without weights.
 """
@@ -26,6 +29,7 @@ import torch
 from ..device import resolve_device
 from ..errors import RettoEngineError
 from ..models.common import full_float32
+from ..parallel.mesh import mesh_devices, replicate_module
 
 __all__ = ["Engine", "TorchEngine", "FakeEngine"]
 
@@ -59,24 +63,42 @@ class TorchEngine:
     included (``models.common.full_float32``).  A TF32 sum moves a det box
     by a pixel now and then, and COMPAT's carried ``max_wh_ratio`` turns
     one wider crop into another width for every crop of its chunk
-    (PERF.md, Findings).  Outputs stay on the device."""
+    (PERF.md, Findings).  Outputs stay on the device.
+
+    ``mesh=``: the models are on the mesh's first 'data' device (the
+    engine's ``device``); every other device of the mesh gets a replica.
+    A batch splits over the 'data' devices as evenly as it can, and a
+    device whose part is empty runs nothing: the staged stages send one
+    det image per call, which the JAX engine's ``device_put`` refuses for
+    a data size above 1.  Every row's forward is its own, so the result
+    is the mesh-free one up to the sum orders of the smaller batches."""
 
     def __init__(
         self,
         det_model: torch.nn.Module | None = None,
         cls_model: torch.nn.Module | None = None,
         rec_model: torch.nn.Module | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         lock: threading.RLock | None = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self._devices = mesh_devices(mesh, device)
+        self.device = self._devices[0]
+        if any(d.type == "cuda" for d in self._devices):
             # float32 matmuls and convs stay float32 (device_pipeline.py)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.lock = lock if lock is not None else threading.RLock()
         self._models = {k: m for k, m in (("det", det_model), ("cls", cls_model),
                                           ("rec", rec_model)) if m is not None}
+        # per stage, one model per 'data' device (shared where a device repeats)
+        self._replicas: dict[str, list[torch.nn.Module]] = {}
+        for k, m in self._models.items():
+            by_dev = {self.device: m}
+            for d in self._devices:
+                if d not in by_dev:
+                    by_dev[d] = replicate_module(m, d)
+            self._replicas[k] = [by_dev[d] for d in self._devices]
         self._shapes: dict[str, set[tuple[int, ...]]] = {k: set() for k in self._models}
 
     def _run(self, name: str, x) -> torch.Tensor:
@@ -89,7 +111,13 @@ class TorchEngine:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         with self.lock, torch.inference_mode(), full_float32():
             self._shapes[name].add(tuple(x.shape))
-            return model(x)
+            if len(self._devices) == 1:
+                return model(x)
+            outs = [rep(part.to(d)).to(self.device)
+                    for rep, d, part in zip(self._replicas[name], self._devices,
+                                            x.tensor_split(len(self._devices)))
+                    if part.shape[0]]
+            return torch.cat(outs)
 
     def det(self, x) -> torch.Tensor:
         return self._run("det", x)

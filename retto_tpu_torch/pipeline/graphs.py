@@ -40,6 +40,7 @@ replays with every other dispatch (``DevicePipeline._lock``).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Hashable, Sequence
 
@@ -62,13 +63,25 @@ class _Entry:
         self.held = held  # launches of each counted wrapper per replay
 
 
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device (its current stream
+    becomes the current one), else nothing."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class GraphCache:
-    """Static key -> captured graph (CUDA) or static buffers (CPU)."""
+    """Static key -> captured graph (CUDA) or static buffers (CPU), all on
+    one device: a graph captured on one card cannot replay on another.
+    Captures and replays run on that device's current stream."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._entries: dict[Hashable, _Entry] = {}
-        self._pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        cuda = device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        # a capture stream on this card: ``torch.cuda.graph``'s default is
+        # one stream for the whole process, on the card of its first use
+        self._stream = torch.cuda.Stream(device) if cuda else None
         self.capture_s = 0.0
 
     def __len__(self) -> int:
@@ -78,6 +91,10 @@ class GraphCache:
             *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """``fn(*args)`` (a tuple of tensors) through the entry of ``key``;
         returns the entry's static outputs."""
+        with on_device(self.device):
+            return self._run(key, fn, args)
+
+    def _run(self, key, fn, args) -> tuple[torch.Tensor, ...]:
         entry = self._entries.get(key)
         if entry is None:
             static_in = [a.clone() for a in args]
@@ -108,7 +125,8 @@ class GraphCache:
         torch.cuda.current_stream().wait_stream(side)
         before = [w.launches for w in kernels.COUNTED]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
             static_out = tuple(fn(*static_in))
         held = []
         for wrapper, n0 in zip(kernels.COUNTED, before):

@@ -15,8 +15,16 @@ over the same models.
     session.close()  # or: with RettoSession(...) as session: ...
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
-``device="cpu"`` to run on the CPU.  ``DevicePipeline(mesh=)`` (several
-cards) is not ported, so there is no ``mesh=``.
+``device="cpu"`` to run on the CPU.  ``mesh=`` (session.py:53-61, 102, 196)
+hands a device mesh to the staged engine and to ``device_pipeline()``:
+a ``parallel.mesh.Mesh`` that this process drives (each forward's batch,
+each det chunk and each crop bucket split over its 'data' devices), or a
+``torch.distributed`` ``DeviceMesh`` from ``parallel.distributed.
+global_mesh()``, of which the session takes this rank's own card::
+
+    from retto_tpu_torch.parallel import make_mesh
+    session = RettoSession(cfg, mesh=make_mesh(), weights=...)  # every card
+    results = session.device_pipeline().run_many(pages)
 """
 
 from __future__ import annotations
@@ -30,12 +38,12 @@ import numpy as np
 import torch
 
 from ..config import SessionConfig
-from ..device import resolve_device
 from ..errors import RettoConfigError, RettoEngineError, RettoError
 from ..geometry import PointBox, scale_and_clip
 from ..image.io import ImageHelper, decode_image
 from ..models.common import cast_compute
 from ..models.registry import build_cls, build_det, build_rec, torch_dtype
+from ..parallel.mesh import mesh_devices
 from ..ops.charset import CharacterDict, ascii_charset
 from ..results import (
     ClsResult,
@@ -83,7 +91,10 @@ class RettoSession:
       ``.npz`` checkpoints, built into models that the staged engine and
       ``device_pipeline()`` share (one copy on the device, one lock);
     * neither — random weights drawn from a fixed-seed ``torch.Generator``
-      (smoke/dev only; logged loudly).
+      (smoke/dev only; logged loudly);
+    * ``mesh=`` — data parallelism over a device mesh (module docstring);
+      the models are built on the mesh's first 'data' device, which is the
+      session's ``device``.
     """
 
     def __init__(
@@ -93,10 +104,12 @@ class RettoSession:
         preset: str = "mobile",
         charset: CharacterDict | Sequence[str] | None = None,
         weights: dict[str, str] | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh=None,
     ):
         self.config = config or SessionConfig()
-        self.device = resolve_device(device)
+        self.device = mesh_devices(mesh, device)[0]
+        self._mesh = mesh
         self.chars = self._resolve_charset(charset)
         self.metrics = PipelineMetrics()
         self._device_pipeline: DevicePipeline | None = None
@@ -104,7 +117,7 @@ class RettoSession:
             # one dispatch lock per session: the staged engine and the fused
             # pipeline drive the same models (models.common._tf32_convs)
             self.engine = TorchEngine(**self._build_models(preset, weights),
-                                      device=self.device, lock=threading.RLock())
+                                      device=self.device, lock=threading.RLock(), mesh=mesh)
         else:
             self.engine = engine
         cfg = self.config
@@ -129,7 +142,7 @@ class RettoSession:
             self._device_pipeline = DevicePipeline(
                 mods["det"], mods["cls"], mods["rec"], self.config, self.chars,
                 device=self.device, metrics=self.metrics,
-                lock=getattr(self.engine, "lock", None),
+                lock=getattr(self.engine, "lock", None), mesh=self._mesh,
             )
         return self._device_pipeline
 

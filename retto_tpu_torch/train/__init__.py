@@ -1,5 +1,12 @@
 from .losses import cls_loss, ctc_loss, db_loss
-from .trainer import TrainState, init_train_state, make_train_step, warmup_cosine_decay
+from .trainer import (
+    TrainState,
+    init_train_state,
+    make_mesh,
+    make_train_step,
+    param_shardings,
+    warmup_cosine_decay,
+)
 
 __all__ = [
     "ctc_loss",
@@ -7,6 +14,8 @@ __all__ = [
     "cls_loss",
     "TrainState",
     "init_train_state",
+    "make_mesh",
     "make_train_step",
+    "param_shardings",
     "warmup_cosine_decay",
 ]

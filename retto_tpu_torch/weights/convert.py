@@ -32,7 +32,8 @@ from torch import nn
 
 from .store import SEP
 
-__all__ = ["convert_flax_params", "export_flax_params", "load_flax_params"]
+__all__ = ["convert_flax_params", "export_flax_params", "flax_param_paths",
+           "load_flax_params"]
 
 _QKV = ("query", "key", "value")
 
@@ -102,39 +103,59 @@ def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Mo
     return module
 
 
-def export_flax_params(module: nn.Module) -> dict[str, np.ndarray]:
-    """``module``'s parameters and running statistics as flat ``::``-keyed
-    Flax variables (float32): the inverse of :func:`convert_flax_params`."""
+def _flax_leaves(module: nn.Module):
+    """(flat Flax key, state-dict name, tensor in Flax's layout) of each of
+    ``module``'s parameters and running statistics."""
     from ..models.common import BatchNorm, Conv, Dense, LayerNorm
     from ..models.svtr import MultiHeadDotProductAttention
 
-    out: dict[str, np.ndarray] = {}
+    def key(col: str, path: str, leaf: str) -> str:
+        return SEP.join([col, *path.split("."), leaf])
 
-    def put(col: str, path: str, leaf: str, t: torch.Tensor) -> None:
-        out[SEP.join([col, *path.split("."), leaf])] = t.detach().float().cpu().numpy()
+    def at(path: str, name: str) -> str:
+        return f"{path}.{name}" if path else name
 
     for path, m in module.named_modules():
         if isinstance(m, Conv):  # OIHW -> HWIO
-            put("params", path, "kernel", m.weight.permute(2, 3, 1, 0))
+            yield key("params", path, "kernel"), at(path, "weight"), m.weight.permute(2, 3, 1, 0)
         elif isinstance(m, Dense) and not path.endswith("out_proj"):
-            put("params", path, "kernel", m.weight.t())
+            yield key("params", path, "kernel"), at(path, "weight"), m.weight.t()
         elif isinstance(m, (BatchNorm, LayerNorm)):
-            put("params", path, "scale", m.weight)
+            yield key("params", path, "scale"), at(path, "weight"), m.weight
             if isinstance(m, BatchNorm):
-                put("batch_stats", path, "mean", m.running_mean)
-                put("batch_stats", path, "var", m.running_var)
+                yield key("batch_stats", path, "mean"), at(path, "running_mean"), m.running_mean
+                yield key("batch_stats", path, "var"), at(path, "running_var"), m.running_var
         elif isinstance(m, MultiHeadDotProductAttention):
             d, h = m.in_proj_weight.shape[1], m.num_heads
             for i, name in enumerate(_QKV):
                 w = m.in_proj_weight[i * d:(i + 1) * d]
-                put("params", f"{path}.{name}", "kernel", w.t().reshape(d, h, d // h))
-                put("params", f"{path}.{name}", "bias",
-                    m.in_proj_bias[i * d:(i + 1) * d].reshape(h, d // h))
-            put("params", f"{path}.out", "kernel", m.out_proj.weight.t().reshape(h, d // h, d))
-            put("params", f"{path}.out", "bias", m.out_proj.bias)
+                yield (key("params", f"{path}.{name}", "kernel"), at(path, "in_proj_weight"),
+                       w.t().reshape(d, h, d // h))
+                yield (key("params", f"{path}.{name}", "bias"), at(path, "in_proj_bias"),
+                       m.in_proj_bias[i * d:(i + 1) * d].reshape(h, d // h))
+            yield (key("params", f"{path}.out", "kernel"), at(path, "out_proj.weight"),
+                   m.out_proj.weight.t().reshape(h, d // h, d))
+            yield key("params", f"{path}.out", "bias"), at(path, "out_proj.bias"), m.out_proj.bias
             continue
         else:
             continue
         if getattr(m, "bias", None) is not None:
-            put("params", path, "bias", m.bias)
+            yield key("params", path, "bias"), at(path, "bias"), m.bias
+
+
+def export_flax_params(module: nn.Module) -> dict[str, np.ndarray]:
+    """``module``'s parameters and running statistics as flat ``::``-keyed
+    Flax variables (float32): the inverse of :func:`convert_flax_params`."""
+    return {k: t.detach().float().cpu().numpy() for k, _, t in _flax_leaves(module)}
+
+
+def flax_param_paths(module: nn.Module) -> dict[str, tuple[str, int]]:
+    """Each Flax parameter's path (``"Dense_1/kernel"``, the names
+    ``jax.tree_util`` paths join with "/") -> (the state-dict name that
+    holds it, its rank in Flax's layout)."""
+    out = {}
+    for k, name, t in _flax_leaves(module):
+        col, *path = k.split(SEP)
+        if col == "params":
+            out["/".join(path)] = (name, t.dim())
     return out

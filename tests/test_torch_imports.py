@@ -95,3 +95,14 @@ def test_onnx_path_modules_load_no_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_and_bigvocab_tool_load_no_jax():
+    """``retto_tpu_torch.parallel`` and the big-vocab tool's module load no
+    jax, flax or retto_tpu module (the tool runs where the port does)."""
+    code = ("import sys, retto_tpu_torch.parallel, retto_tpu_torch.train.train_bigvocab\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'retto_tpu')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

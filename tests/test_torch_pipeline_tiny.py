@@ -184,8 +184,8 @@ def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
     jtexts, ttexts = {}, {}
     jdp._fetch_texts(jh, stats(), jtexts)
     with torch.inference_mode():  # run_many's mode around the internals
-        th = tdp._dispatch_clsrec(torch.from_numpy(imgs), torch.from_numpy(valid), tt,
-                                  stats())
+        th = tdp._dispatch_clsrec({tdp.device: torch.from_numpy(imgs)},
+                                  {tdp.device: torch.from_numpy(valid)}, tt, stats())
         assert max(e[2] for items, _ in th for e in items) == 4  # the wide line split
         tdp._fetch_texts(th, stats(), ttexts)
     for j in range(len(quads)):
