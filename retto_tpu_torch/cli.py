@@ -6,7 +6,7 @@ latency) with JAX's flags (cli.py:241-309), plus JSON output and the fused
 device pipeline.
 
 Usage:
-    retto-torch ocr IMAGES_DIR [--weights-dir trained_weights] [--json-out out.jsonl]
+    retto-torch ocr IMAGES_DIR [--weights-dir trained_weights | --hf-hub] [--json-out out.jsonl]
     retto-torch serve [--host 127.0.0.1] [--port 8471] [--mode compat|performance]
     retto-torch info
 
@@ -57,14 +57,18 @@ def _build_session(args):
     from .ops.charset import CharacterDict
     from .pipeline.session import RettoSession
 
-    if getattr(args, "hf_hub", False):
-        raise CliError("--hf-hub is not ported: it needs the ONNX engine "
-                       "(ROADMAP Queue 1 item 9) and the network")
     device = _device(args)
     cfg = SessionConfig()
     if args.transfer:
         cfg.engine.transfer_format = args.transfer
     cfg.mode = PipelineMode(args.mode)
+    if getattr(args, "hf_hub", False):
+        # reference CLI's use_hf_hub (main.rs:46-66): pull the PP-OCRv4
+        # artifact set and run the reference's own models
+        from .weights.hub import load_ppocr_onnx_engine
+
+        engine, chars = load_ppocr_onnx_engine(device=device)
+        return RettoSession(cfg, engine=engine, charset=chars, device=device)
     if args.limit_side_len:
         cfg.det.limit_side_len = args.limit_side_len
     if args.no_cls:
@@ -248,7 +252,8 @@ def main(argv: list[str] | None = None) -> int:
     ocr.add_argument("--batch", type=int, default=16,
                      help="files per run_many batch (with --device-pipeline)")
     ocr.add_argument("--hf-hub", action="store_true",
-                     help="the reference's PP-OCRv4 ONNX artifacts (not ported)")
+                     help="run the reference's PP-OCRv4 ONNX artifacts from the "
+                          "HuggingFace Hub cache (reference: use_hf_hub)")
     ocr.add_argument("--json-out", default=None, help="write JSONL results")
     ocr.add_argument("--full", action="store_true",
                      help="include boxes/labels in JSON output")

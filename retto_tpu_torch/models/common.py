@@ -54,6 +54,7 @@ __all__ = [
     "mean_f32",
     "xla_hw_sum",
     "xla_dot",
+    "linear_nobias",
     "ACTIVATIONS",
     "Conv",
     "Dense",
@@ -68,6 +69,7 @@ __all__ = [
     "set_compute_dtype",
     "ComputeModel",
     "full_float32",
+    "cudnn_tf32",
 ]
 
 
@@ -167,7 +169,15 @@ def _xla_dot_order(m: int, k: int, n: int) -> tuple[str, int]:
     tools/cpu_parity_probe.py dw): ``("lanes", L)``, L interleaved partial
     sums (term i into sum i mod L) added pairwise; or ``("blocks", B)``,
     blocks of B terms each summed from zero, the block sums added in order
-    (B = K: one sequential sum).  Shapes not read take the sequential sum."""
+    (B = K: one sequential sum).
+
+    From 51 rows on the order follows the output width N alone, at every
+    K read (64-512) and N read (4-6,625), by N mod 64: 20-32 -> 2 lanes,
+    0 or 52-63 -> sequential, else 4 lanes (read against ``jax.jit(a @ w)``
+    on bf16 operands at 52-512 rows, tests/test_torch_cpu_threads.py;
+    XLA:CPU's single- and multi-threaded Eigen give the same bits).  Below
+    51 rows XLA takes other orders, not all read: shapes not read take the
+    sequential sum."""
     if m >= 2:
         if (k, n) == (64, 16):
             return "lanes", 4
@@ -175,29 +185,59 @@ def _xla_dot_order(m: int, k: int, n: int) -> tuple[str, int]:
             return "blocks", 256
         if (k, n) == (128, 512) and m <= 50:
             return "blocks", 64
-        if (k, n) == (128, 32) and m >= 51:
+    if m >= 51:
+        r = n % 64
+        if 20 <= r <= 32:
             return "lanes", 2
+        if 0 < r < 52:
+            return "lanes", 4
     return "blocks", k
 
 
 def xla_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """float32 [M, K] x [K, N] summed in :func:`_xla_dot_order`'s order.
-    Products of compute-dtype values are exact in float32, so the order
-    alone decides the bits."""
+    """float32 [M, K] x [K, N] summed in :func:`_xla_dot_order`'s order
+    (the native ``dot_xla_native``, else term by term in torch).  Products
+    of compute-dtype values are exact in float32, so the order alone
+    decides the bits, whatever the intra-op thread count."""
+    from ..native import dot_xla_native
+
     a, w = a.float(), w.float()
     m, k = a.shape
     kind, size = _xla_dot_order(m, k, w.shape[1])
-    terms = a[:, :, None] * w[None]  # [M, K, N]
+    out = dot_xla_native(a.detach().numpy(), w.detach().numpy(),
+                         *((size, k) if kind == "lanes" else (1, size)),
+                         torch.get_num_threads())
+    if out is not None:
+        return torch.from_numpy(out)
+
+    def chain(ks: range) -> torch.Tensor:  # term by term from +0
+        s = a[:, ks[0], None] * w[ks[0]] + 0.0
+        for i in ks[1:]:
+            s += a[:, i, None] * w[i]
+        return s
+
     if kind == "lanes":
-        parts = [_sum_in_order(terms[:, i::size].transpose(1, 2)) for i in range(size)]
+        parts = [chain(range(i, k, size)) for i in range(min(size, k))]
         while len(parts) > 1:
             parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
         return parts[0]
     out = None
     for b in range(0, k, size):
-        blk = _sum_in_order(terms[:, b:b + size].transpose(1, 2))
+        blk = chain(range(b, min(b + size, k)))
         out = blk if out is None else out + blk
     return out
+
+
+def linear_nobias(x: torch.Tensor, w: torch.Tensor, training: bool = False) -> torch.Tensor:
+    """``x @ w.T`` in ``w``'s dtype, a Flax ``Dense``'s HLO ``dot``.  On the
+    CPU in inference with a bf16 (not float32) weight the sum takes
+    XLA:CPU's order (:func:`xla_dot`), so its bits do not depend on the
+    intra-op thread count as oneDNN's blocked sums do; elsewhere
+    ``F.linear``."""
+    if x.is_cuda or training or w.dtype == torch.float32:
+        return F.linear(x, w)
+    y = xla_dot(x.reshape(-1, x.shape[-1]), w.t()).to(w.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -224,13 +264,20 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 _THREAD = threading.local()
 
+# cuDNN's TF32 switch is one flag for the whole process.  Every float32
+# conv of the port on a CUDA tensor sets it under this lock, to the value
+# its caller's mode asks for, and launches under it (:func:`cudnn_tf32`),
+# so two threads, of one session or of two, never launch a conv under the
+# other's setting.
+_TF32_LOCK = threading.Lock()
+
 
 @contextlib.contextmanager
 def full_float32() -> Iterator[None]:
     """Within, on this thread, the convs that feed a BatchNorm run in full
-    float32 on CUDA: :func:`_tf32_convs` leaves cuDNN's TF32 flag as it
-    finds it (off, as the engines set it).  The staged engine runs its
-    forwards so (``pipeline.engine.TorchEngine``)."""
+    float32 on CUDA: :func:`_tf32_convs` sets cuDNN's TF32 flag to False
+    for them.  The staged engine runs its forwards so
+    (``pipeline.engine.TorchEngine``)."""
     prev = getattr(_THREAD, "no_tf32", False)
     _THREAD.no_tf32 = True
     try:
@@ -239,30 +286,39 @@ def full_float32() -> Iterator[None]:
         _THREAD.no_tf32 = prev
 
 
+def _uses_cudnn(x: torch.Tensor) -> bool:
+    """Whether a conv of ``x`` runs on cuDNN, where the TF32 flag counts."""
+    return x.is_cuda
+
+
 @contextlib.contextmanager
-def _tf32_convs(x: torch.Tensor) -> Iterator[None]:
-    """On a CUDA tensor, lets cuDNN run the float32 convs inside in TF32 and
-    restores the caller's setting after; elsewhere changes nothing.  Only
-    for operands that hold bf16 values: TF32's 10-bit mantissa carries
-    bf16's 7 bits exactly and each product fits in float32, so TF32
-    computes a float32 conv of the same values at the tensor cores' rate;
-    only the order and rounding of its sums differ from full float32.  The
-    switch is cuDNN's process-wide flag, held for the one conv, so two
-    threads must not run model code at once: a session's staged engine and
-    its fused pipeline both call the models only under the session's one
-    dispatch lock (``TorchEngine.lock``, ``DevicePipeline._lock``).  One
-    flag, not ``torch.backends.cudnn.flags``, which sets and restores every
-    cuDNN flag around each conv on a host-bound pipeline."""
-    if not x.is_cuda or getattr(_THREAD, "no_tf32", False):
+def cudnn_tf32(x: torch.Tensor, allow: bool) -> Iterator[None]:
+    """Holds the process-wide :data:`_TF32_LOCK` and cuDNN's TF32 flag at
+    ``allow`` for the float32 conv launched inside, then restores the flag;
+    for a tensor off the card, changes nothing.  One flag, not
+    ``torch.backends.cudnn.flags``, which sets and restores every cuDNN
+    flag around each conv on a host-bound pipeline."""
+    if not _uses_cudnn(x):
         yield
         return
     cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = True
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = prev
+    with _TF32_LOCK:
+        prev = cudnn.allow_tf32
+        cudnn.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32 = prev
+
+
+def _tf32_convs(x: torch.Tensor) -> contextlib.AbstractContextManager:
+    """:func:`cudnn_tf32` for a conv into a BatchNorm: TF32 unless
+    :func:`full_float32` is active on this thread.  Only for operands that
+    hold bf16 values: TF32's 10-bit mantissa carries bf16's 7 bits exactly
+    and each product fits in float32, so TF32 computes a float32 conv of
+    the same values at the tensor cores' rate; only the order and rounding
+    of its sums differ from full float32."""
+    return cudnn_tf32(x, not getattr(_THREAD, "no_tf32", False))
 
 
 # Eigen caps the contraction block of a multi-threaded float32 product at
@@ -390,7 +446,10 @@ class Conv(nn.Conv2d):
             pad = (ph[0], pw[0])
         else:
             x, pad = F.pad(x, (pw[0], pw[1], ph[0], ph[1])), 0
-        if not f32_out or w.dtype == torch.float32:
+        if w.dtype == torch.float32:
+            with cudnn_tf32(x, False):
+                return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
+        if not f32_out:
             return F.conv2d(x, w, b, self.stride, pad, groups=self.groups)
         x, w = x.float(), w.float()
         b = None if b is None else b.float()
@@ -408,7 +467,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
         w, b = _compute_params(self)
-        y = F.linear(x.to(w.dtype), w)
+        y = linear_nobias(x.to(w.dtype), w, self.training)
         if f32_out:
             return y.float() + b.float()
         return y + b

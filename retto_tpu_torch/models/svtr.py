@@ -27,6 +27,7 @@ from .common import (
     Dense,
     LayerNorm,
     SEModule,
+    linear_nobias,
     mean_f32,
     xla_hw_sum,
 )
@@ -127,7 +128,8 @@ class MultiHeadDotProductAttention(nn.Module):
         dh = d // h
         dt = self.compute_dtype or self.in_proj_weight.dtype
         # the product rounds before the bias add, as in Flax's DenseGeneral
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt)) + self.in_proj_bias.to(dt)
+        qkv = (linear_nobias(x.to(dt), self.in_proj_weight.to(dt), self.training)
+               + self.in_proj_bias.to(dt))
         q, k, v = (z.reshape(n, t, h, dh) for z in qkv.split(d, dim=-1))
         return self.out_proj(self.attend(q, k, v, fixed_order=not self.training)
                              .reshape(n, t, d))

@@ -2,9 +2,9 @@
 
 Port copy of ``retto_tpu/native/__init__.py``: the port imports nothing of the JAX
 package, so it keeps its own copy of this host-only module.  The port adds
-``conv_xla_native`` and ``rsqrt_xla_native`` (``conv_xla.cpp``): the
-convolution and the rsqrt in XLA:CPU's arithmetic, which ``models.common``
-uses on CPU tensors.
+``conv_xla_native``, ``dot_xla_native`` and ``rsqrt_xla_native``
+(``conv_xla.cpp``): the convolution, the dot and the rsqrt in XLA:CPU's
+arithmetic, which ``models.common`` uses on CPU tensors.
 
 Compiled lazily with g++ at first use (no pybind11 in this environment;
 plain C ABI + ctypes).  Falls back silently to the NumPy implementation
@@ -74,6 +74,8 @@ def _load() -> ctypes.CDLL | None:
     ]
     lib.rt_conv_xla.restype = ctypes.c_int
     lib.rt_conv_xla.argtypes = [ctypes.POINTER(ctypes.c_float)] * 3 + [ctypes.c_int] * 15
+    lib.rt_dot_xla.restype = ctypes.c_int
+    lib.rt_dot_xla.argtypes = [ctypes.POINTER(ctypes.c_float)] * 3 + [ctypes.c_int] * 6
     lib.rt_rsqrt_xla.restype = None
     lib.rt_rsqrt_xla.argtypes = [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_int]
     lib.rt_is_gray.restype = ctypes.c_int
@@ -413,6 +415,27 @@ def conv_xla_native(
     err = lib.rt_conv_xla(x.ctypes.data_as(fp), w.ctypes.data_as(fp), out.ctypes.data_as(fp),
                           n, h, wd, cin, kh, kw, cout, stride[0], stride[1], pads[0], pads[1],
                           out_hw[0], out_hw[1], kc, threads)
+    return None if err else out
+
+
+def dot_xla_native(a: np.ndarray, w: np.ndarray, lanes: int, block: int,
+                   threads: int) -> np.ndarray | None:
+    """float32 [m, k] x [k, n] in one of XLA:CPU's summation orders
+    (``conv_xla.cpp``: ``lanes`` interleaved partial sums added pairwise,
+    within blocks of ``block`` terms added in order); None without the
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, np.float32)
+    w = np.ascontiguousarray(w, np.float32)
+    (m, k), n = a.shape, w.shape[1]
+    if w.shape[0] != k:
+        raise ValueError(f"dot of {a.shape} and {w.shape}")
+    out = np.empty((m, n), np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    err = lib.rt_dot_xla(a.ctypes.data_as(fp), w.ctypes.data_as(fp), out.ctypes.data_as(fp),
+                         m, k, n, lanes, block, threads)
     return None if err else out
 
 

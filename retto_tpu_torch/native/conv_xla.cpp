@@ -13,6 +13,13 @@
 //   wt  [kh, kw, cin, cout] float32, HWIO
 //   out [n, oh, ow, cout]   float32, NHWC
 //
+// Also a float32 dot [m, k] x [k, n] summed in one of XLA:CPU's orders
+// (``models.common._xla_dot_order``): the k terms in blocks of `block`, each
+// block's terms dealt to `lanes` partial sums (term i to partial i mod
+// lanes), each partial a fused multiply-add chain from zero, the partials
+// added pairwise, the blocks' sums added in order.  Rows run on `threads`
+// threads; each row's order is fixed, so the bits do not depend on them.
+//
 // Also XLA:CPU's float32 rsqrt: the hardware estimate (`rsqrtps`) refined
 // by two Newton steps, each `y + (-0.5 * y) * (x * y * y - 1)` with its
 // multiply-adds fused as LLVM contracts them; zeros, subnormals, negative
@@ -90,6 +97,52 @@ extern "C" int rt_conv_xla(const float* x, const float* wt, float* out, int n, i
     if (p0 >= p1) break;
     pool.emplace_back(conv_rows, x, wt, out, h, w, cin, kh, kw, cout, sh, sw, pt, pl, oh,
                       ow, kc, p0, p1);
+  }
+  for (auto& th : pool) th.join();
+  return 0;
+}
+
+namespace {
+
+void dot_rows(const float* a, const float* w, float* out, int k, int n, int lanes,
+              int block, long r0, long r1) {
+  std::vector<float> part(static_cast<size_t>(lanes) * n);
+  for (long r = r0; r < r1; ++r) {
+    const float* ar = a + r * k;
+    float* o = out + r * n;
+    for (int b0 = 0; b0 < k; b0 += block) {
+      std::fill(part.begin(), part.end(), 0.0f);
+      const int b1 = std::min(k, b0 + block);
+      for (int i = b0; i < b1; ++i) {
+        float* acc = part.data() + static_cast<size_t>((i - b0) % lanes) * n;
+        const float v = ar[i];
+        const float* wr = w + static_cast<long>(i) * n;
+        for (int j = 0; j < n; ++j) acc[j] = std::fma(v, wr[j], acc[j]);
+      }
+      for (int width = 1; width < lanes; width *= 2) {  // pairwise
+        for (int l = 0; l + width < lanes; l += 2 * width) {
+          float* x = part.data() + static_cast<size_t>(l) * n;
+          const float* y = x + static_cast<size_t>(width) * n;
+          for (int j = 0; j < n; ++j) x[j] += y[j];
+        }
+      }
+      for (int j = 0; j < n; ++j) o[j] = b0 == 0 ? part[j] : o[j] + part[j];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int rt_dot_xla(const float* a, const float* w, float* out, int m, int k, int n,
+                          int lanes, int block, int threads) {
+  if (m <= 0 || k <= 0 || n <= 0 || lanes <= 0 || block <= 0) return 1;
+  const int t = std::max(1, std::min(threads, m));
+  std::vector<std::thread> pool;
+  const long step = (static_cast<long>(m) + t - 1) / t;
+  for (int i = 0; i < t; ++i) {
+    const long r0 = i * step, r1 = std::min<long>(m, r0 + step);
+    if (r0 >= r1) break;
+    pool.emplace_back(dot_rows, a, w, out, k, n, lanes, block, r0, r1);
   }
   for (auto& th : pool) th.join();
   return 0;

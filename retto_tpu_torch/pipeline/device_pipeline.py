@@ -61,9 +61,10 @@ the det model's compute dtype (bf16 for the shipped checkpoints); the BGR
 normalize, YUV->RGB and the warp tails run in float32, and TF32 is off for
 float32 matmuls and convolutions on CUDA, except inside the models' convs
 that feed a BatchNorm (float32 sums of bf16 values, which TF32 computes
-exactly; ``models.common``).  The models flip cuDNN's process-wide TF32
-flag around those convs, which is safe because every model call of the
-session, fused or staged, runs under its one dispatch lock.
+exactly; ``models.common``).  Each float32 conv sets cuDNN's
+process-wide TF32 flag and launches under one process-wide lock
+(``models.common.cudnn_tf32``), so sessions in other threads keep their
+own setting.
 """
 
 from __future__ import annotations
@@ -329,10 +330,10 @@ class DevicePipeline:
         devices = mesh_devices(mesh, device)
         self.device = devices[0]
         if any(d.type == "cuda" for d in devices):
-            # the float32 paths (normalize, gather-warp homographies, f32
-            # presets) must not drop to TF32
+            # the float32 matmuls (normalize, gather-warp homographies, f32
+            # presets) must not drop to TF32; the convs set cuDNN's flag
+            # under models.common's lock
             torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.cfg = config
         self.chars = chars
         self.metrics = metrics if metrics is not None else PipelineMetrics()

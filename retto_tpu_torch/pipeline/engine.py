@@ -53,14 +53,15 @@ class TorchEngine:
     The models are the port's ``nn.Module``s, already on ``device`` in eval
     mode; any of them may be None, and a stage without a model raises
     ``RettoEngineError``.  Every forward runs under ``torch.inference_mode()``
-    and ``lock``, the owning session's dispatch lock: the fused pipeline's
-    forwards flip cuDNN's process-wide TF32 flag around their BatchNorm
-    convs (``models.common._tf32_convs``), so one lock covers every model
-    call of the session, this engine's and its ``DevicePipeline``'s alike.
+    and ``lock``, the owning session's dispatch lock, which covers every
+    model call of the session, this engine's and its ``DevicePipeline``'s
+    alike.
 
     On CUDA the engine computes in full float32 where the models compute in
     float32: TF32 is off for matmuls and convs, the BatchNorm convs
-    included (``models.common.full_float32``).  A TF32 sum moves a det box
+    included (``models.common.full_float32``; each conv sets cuDNN's
+    process-wide TF32 flag under ``models.common``'s one lock, so another
+    session's TF32 convs in another thread cannot reach it).  A TF32 sum moves a det box
     by a pixel now and then, and COMPAT's carried ``max_wh_ratio`` turns
     one wider crop into another width for every crop of its chunk
     (PERF.md, Findings).  Outputs stay on the device.
@@ -85,9 +86,9 @@ class TorchEngine:
         self._devices = mesh_devices(mesh, device)
         self.device = self._devices[0]
         if any(d.type == "cuda" for d in self._devices):
-            # float32 matmuls and convs stay float32 (device_pipeline.py)
+            # float32 matmuls stay float32 (device_pipeline.py); the convs
+            # set cuDNN's flag under models.common's lock
             torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.lock = lock if lock is not None else threading.RLock()
         self._models = {k: m for k, m in (("det", det_model), ("cls", cls_model),
                                           ("rec", rec_model)) if m is not None}

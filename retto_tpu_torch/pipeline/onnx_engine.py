@@ -101,7 +101,6 @@ class OnnxEngine:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.lock = lock if lock is not None else threading.RLock()
         self._modules: dict[str, OnnxModule] = {}
         for name, src in (("det", det), ("cls", cls), ("rec", rec)):

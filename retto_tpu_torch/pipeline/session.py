@@ -115,7 +115,7 @@ class RettoSession:
         self._device_pipeline: DevicePipeline | None = None
         if engine is None:
             # one dispatch lock per session: the staged engine and the fused
-            # pipeline drive the same models (models.common._tf32_convs)
+            # pipeline drive the same models
             self.engine = TorchEngine(**self._build_models(preset, weights),
                                       device=self.device, lock=threading.RLock(), mesh=mesh)
         else:

@@ -21,6 +21,12 @@ Endpoints (stdlib http.server; no extra deps):
 
 ``server_close()`` stops the batcher; the session's ``close()`` ends the
 fused pipeline's threads.
+
+One departure from the JAX server: the listen backlog is 64, not
+socketserver's 5.  With 5, a burst of 8 concurrent connects can overflow
+the queue; the kernel then drops a SYN, which the client sends again after
+TCP's 1 s initial retransmission timeout (``chip_smoke.py`` phase serve
+times the connects under both backlogs; PERF.md, Findings).
 """
 
 from __future__ import annotations
@@ -274,6 +280,7 @@ def make_handler(session, batcher: MicroBatcher, stream_lock: threading.Lock):
 
 class _Server(ThreadingHTTPServer):
     batcher: MicroBatcher | None = None
+    request_queue_size = 64  # the listen backlog (module docstring)
 
     def server_close(self):
         if self.batcher is not None:

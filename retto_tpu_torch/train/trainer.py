@@ -24,15 +24,23 @@ and the optimizer as they are on one device):
   mining is not a mean over rows);
 * BatchNorm takes the global batch's statistics (``models.common.
   BatchNorm.stats_group``), as the SPMD step's mean over a sharded axis;
-* parameters that a rule of :func:`param_shardings` matches are split over
-  'model': a Dense kernel ``P(None, "model")`` (Flax ``[D, C]``) becomes
-  this rank's rows of the torch ``[C, D]`` weight, an uneven split
+* parameters that a rule of :func:`param_shardings` matches are split as
+  its spec says.  A Dense kernel ``P(None, "model")`` (Flax ``[D, C]``)
+  becomes this rank's rows of the torch ``[C, D]`` weight, an uneven split
   included (6,625 classes over 2: 3,313 + 3,312); the layer computes its
-  logit columns and all-gathers them before the bias and the loss.  The
-  bias, 1-D, stays whole, as JAX's ``ndim >= 2`` test leaves it;
+  logit columns and all-gathers them before the bias and the loss
+  (:class:`ColumnShardedDense`).  Every other spec (a row split, a conv
+  kernel, the attention kernels, a split over 'data', several axes on one
+  dimension) stores this rank's block of the parameter and all-gathers
+  the whole parameter where the layer reads it (:class:`_GatherParam`, a
+  parametrization), so the layer's math is the unsharded one, as under
+  pjit only the layout changes.  A 1-D bias stays whole, as JAX's
+  ``ndim >= 2`` test leaves it;
 * gradients are averaged over 'data' (each rank's backward carries the
-  all-gathers' sums, so the average is the global batch's gradient), and
-  AdamW steps every parameter, the shards included.
+  all-gathers' sums, so the average is the global batch's gradient); a
+  gathered parameter's backward averages its gradient over 'data' and
+  keeps this rank's block.  AdamW steps every parameter, the shards
+  included.
 
 The default rule is JAX's ``{"head": P(None, "model")}``.  It matches a
 substring of each parameter's Flax path, and no shipped model has
@@ -105,14 +113,28 @@ class TrainState:
         return dict(self.model.named_buffers())
 
 
-def _torch_spec(flax_spec: PartitionSpec, ndim: int) -> PartitionSpec:
-    """A Flax kernel's spec in the torch weight's layout: a Dense ``[in,
-    out]`` kernel is the transposed ``[out, in]`` weight, a conv's HWIO
-    the OIHW weight."""
-    spec = tuple(flax_spec) + (None,) * (ndim - len(flax_spec))
-    if ndim == 2:
-        return P(spec[1], spec[0])
-    return P(spec[3], spec[2], spec[0], spec[1])
+# Each Flax dimension's torch dimension, by parameter: a Dense kernel
+# [in, out] is the [out, in] weight, a conv's HWIO the OIHW weight, the
+# attention's query/key/value kernels [D, H, Dh] rows of ``in_proj_weight``
+# [3D, D] (their [H, Dh] biases of ``in_proj_bias``), its output kernel
+# [H, Dh, D] the [D, H*Dh] ``out_proj.weight``.
+_TORCH_DIMS = {"in_proj_weight": (1, 0, 0), "in_proj_bias": (0, 0),
+               "out_proj.weight": (1, 1, 0)}
+_TORCH_DIMS_BY_RANK = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def _torch_spec(flax_spec: PartitionSpec, name: str, ndim: int) -> PartitionSpec:
+    """A Flax leaf's spec in its torch parameter's layout.  Flax dimensions
+    that fold into one torch dimension (heads and head width) give it
+    their axes in order, outer first, as a tuple."""
+    if len(flax_spec) > ndim:
+        raise ValueError(f"spec {flax_spec} has more entries than {name}'s rank {ndim}")
+    dims = next((d for k, d in _TORCH_DIMS.items() if name.endswith(k)), None)
+    dims = dims or _TORCH_DIMS_BY_RANK[ndim]
+    axes: list[tuple[str, ...]] = [() for _ in range(max(dims) + 1)]
+    for i, entry in enumerate(tuple(flax_spec)):
+        axes[dims[i]] += (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return P(*(None if not a else a[0] if len(a) == 1 else a for a in axes))
 
 
 def _axis_names(mesh) -> tuple[str, ...]:
@@ -126,18 +148,22 @@ def param_shardings(model: nn.Module, mesh, rules: Mapping[str, PartitionSpec] |
     (``"Dense_1/kernel"``) contains a rule's substring, and whose Flax leaf
     has rank >= 2, takes the first such rule's spec.  Default rule
     ``{"head": P(None, "model")}``.  ``mesh`` (a ``DeviceMesh`` or a
-    ``parallel.mesh.Mesh``) must have every axis the specs name."""
+    ``parallel.mesh.Mesh``) must have every axis the specs name.  A torch
+    parameter that holds several Flax leaves (``in_proj_weight``: the
+    query, key and value kernels) takes the spec of the first leaf a rule
+    matches, for the whole parameter."""
     rules = DEFAULT_RULES if rules is None else rules
     names = _axis_names(mesh)
     out = {name: P() for name, _ in model.named_parameters()}
     for path, (name, ndim) in flax_param_paths(model).items():
         for frag, spec in rules.items():
             if frag in path and ndim >= 2:
-                if any(a is not None and a not in names for a in spec):
-                    raise ValueError(f"rule {frag!r} names an axis outside {names}: {spec}")
-                if ndim not in (2, 4) or name.endswith(("in_proj_weight", "out_proj.weight")):
-                    raise NotImplementedError(f"sharding the attention kernel {path}")
-                out[name] = _torch_spec(spec, ndim)
+                used = [a for e in spec for a in ((e,) if isinstance(e, str) else e or ())]
+                if any(a not in names for a in used) or len(set(used)) < len(used):
+                    raise ValueError(f"rule {frag!r}: {spec} must name each of {names} "
+                                     "at most once")
+                if not any(out[name]):
+                    out[name] = _torch_spec(spec, name, ndim)
                 break
     return out
 
@@ -202,9 +228,78 @@ class ColumnShardedDense(Dense):
         return y + b
 
 
+class _GatherParam(nn.Module):
+    """A parametrization (``torch.nn.utils.parametrize``) that stores this
+    rank's block of a parameter split by ``spec`` (torch layout) and
+    returns the whole parameter, all-gathered, where the layer reads it.
+    Its backward averages the gradient over 'data' (each rank's carries
+    its own rows' share, as :func:`_average_grads` takes it) and keeps this
+    rank's block."""
+
+    def __init__(self, shape: torch.Size, spec: PartitionSpec, mesh):
+        super().__init__()
+        names = _axis_names(mesh)
+        self.data_group = mesh.get_group("data")
+        self.n_data = mesh.size(names.index("data"))
+        # (dim, group, every rank's size, this rank's index), the innermost
+        # axis of a dimension first: the order of the gathers
+        self.plan: list[tuple[int, Any, list[int], int]] = []
+        for dim, entry in enumerate(tuple(spec)):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if not axes:
+                continue
+            counts = [mesh.size(names.index(a)) for a in axes]
+            chunks = [len(c) for c in torch.arange(shape[dim]).tensor_split(math.prod(counts))]
+            for j in reversed(range(len(axes))):
+                inner = math.prod(counts[j + 1:])
+                n = counts[j]
+                # the sizes after the gathers of the axes inside this one
+                sizes = [sum(chunks[i:i + inner]) for i in range(0, len(chunks), inner)]
+                pos = 0  # this rank's block of the axes outside this one
+                for k, a in enumerate(axes[:j]):
+                    pos = pos * counts[k] + mesh.get_local_rank(a)
+                self.plan.append((dim, mesh.get_group(axes[j]), sizes[pos * n:(pos + 1) * n],
+                                  mesh.get_local_rank(axes[j])))
+
+    def forward(self, shard: torch.Tensor) -> torch.Tensor:
+        return _Gather.apply(shard, self.plan, self.data_group, self.n_data)
+
+    def right_inverse(self, full: torch.Tensor) -> torch.Tensor:
+        for dim, _, sizes, index in reversed(self.plan):
+            full = full.narrow(dim, sum(sizes[:index]), sizes[index])
+        return full.contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """:class:`_GatherParam`'s all-gathers along each ``plan`` step (each
+    rank's block padded to the largest for the collective)."""
+
+    @staticmethod
+    def forward(ctx, x, plan, data_group, n_data):
+        ctx.plan, ctx.data_group, ctx.n_data = plan, data_group, n_data
+        for dim, group, sizes, _ in plan:
+            pad = [0, 0] * (x.dim() - 1 - dim) + [0, max(sizes) - x.shape[dim]]
+            y = F.pad(x, pad).contiguous()
+            parts = [torch.empty_like(y) for _ in sizes]
+            dist.all_gather(parts, y, group=group)
+            x = torch.cat([t.narrow(dim, 0, n) for t, n in zip(parts, sizes)], dim=dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.data_group)
+        g /= ctx.n_data
+        for dim, _, sizes, index in reversed(ctx.plan):
+            g = g.narrow(dim, sum(sizes[:index]), sizes[index])
+        return g.contiguous(), None, None, None
+
+
 def _shard_model(model: nn.Module, mesh, rules) -> None:
     """Apply ``param_shardings`` to ``model`` in place for this rank, and
     point every BatchNorm at the 'data' group."""
+    from torch.nn.utils import parametrize
+
     data_group = mesh.get_group("data")
     for m in model.modules():
         if isinstance(m, BatchNorm):
@@ -215,13 +310,17 @@ def _shard_model(model: nn.Module, mesh, rules) -> None:
         if not any(spec):
             continue
         path, _, leaf = name.rpartition(".")
-        dense = model.get_submodule(path)
-        if leaf != "weight" or not isinstance(dense, Dense) or spec != P("model", None):
-            raise NotImplementedError(f"only P(None, 'model') on a Dense kernel, got {name}: {spec}")
-        sizes = [len(c) for c in torch.arange(dense.out_features).tensor_split(n_model)]
-        owner, _, attr = path.rpartition(".")
-        setattr(model.get_submodule(owner), attr,
-                ColumnShardedDense(dense, mesh.get_group("model"), sizes, index))
+        owner = model.get_submodule(path)
+        if leaf == "weight" and isinstance(owner, Dense) and spec == P("model", None):
+            sizes = [len(c) for c in torch.arange(owner.out_features).tensor_split(n_model)]
+            parent, _, attr = path.rpartition(".")
+            setattr(model.get_submodule(parent), attr,
+                    ColumnShardedDense(owner, mesh.get_group("model"), sizes, index))
+            continue
+        param = getattr(owner, leaf)
+        parametrize.register_parametrization(owner, leaf,
+                                             _GatherParam(param.shape, spec, mesh), unsafe=True)
+        getattr(owner.parametrizations, leaf).original.data_averaged = True
 
 
 def init_train_state(model: nn.Module, lr: float | Callable[[int], float],
@@ -288,7 +387,10 @@ def _gather_rows(out: Any, group) -> Any:
 
 def _average_grads(model: nn.Module, group) -> None:
     """Each gradient averaged over ``group``, in one all-reduce."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    grads = [p.grad for p in model.parameters()
+             if p.grad is not None and not getattr(p, "data_averaged", False)]
+    if not grads:
+        return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)

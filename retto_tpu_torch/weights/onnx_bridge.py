@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import RettoWeightsError
+from ..models.common import cudnn_tf32
 from .onnx_proto import OnnxModel, parse_model, tensor_to_numpy
 
 __all__ = ["OnnxFunction", "load_onnx", "build_fn"]
@@ -601,7 +602,8 @@ def _conv(a, x, w, b=None):
         padding = [lo for lo, _ in cfg]
     else:
         x, padding = F.pad(x, _torch_pads(cfg)), 0
-    return _CONV[spatial](x, w, b, strides, padding, dil, group)
+    with cudnn_tf32(x, False):
+        return _CONV[spatial](x, w, b, strides, padding, dil, group)
 
 
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -617,7 +619,8 @@ def _conv_transpose(a, x, w, b=None):
         raise RettoWeightsError("grouped ConvTranspose not supported")
     # onnx W is [C_in, C_out, kh, kw], torch's own layout; the pads crop
     # the full (in - 1) * s + k output on each side
-    out = _CONV_T[spatial](x, w, b, strides)
+    with cudnn_tf32(x, False):
+        out = _CONV_T[spatial](x, w, b, strides)
     idx = [slice(None), slice(None)]
     for i in range(spatial):
         idx.append(slice(pads[i], out.shape[2 + i] - pads[i + spatial]))

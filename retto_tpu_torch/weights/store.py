@@ -18,7 +18,7 @@ import numpy as np
 
 from ..errors import ModelNotFoundError, RettoWeightsError
 
-__all__ = ["SEP", "load_params_meta", "save_params"]
+__all__ = ["SEP", "load_params", "load_params_meta", "save_params"]
 
 SEP = "::"
 _META_KEY = "__meta__"
@@ -40,6 +40,12 @@ def load_params_meta(
             return flat, meta
     except (OSError, ValueError) as e:
         raise RettoWeightsError(f"failed to load weights from {path}: {e}") from e
+
+
+def load_params(path: str | Path) -> dict[str, np.ndarray]:
+    """The checkpoint's flat ``::``-keyed arrays without its self-description
+    (``retto_tpu/weights/store.py:77-78``, which returns the nested tree)."""
+    return load_params_meta(path)[0]
 
 
 def save_params(path: str | Path, flat: Mapping[str, np.ndarray],

@@ -92,11 +92,14 @@ def test_cuda_without_a_card_exits_1(page_dir, capsys):
         assert "--device cpu" in capsys.readouterr().err
 
 
-def test_not_ported_paths_exit_1_with_a_message(page_dir, tmp_path, capsys):
+def test_not_ported_paths_exit_1_with_a_message(page_dir, tmp_path, capsys, monkeypatch):
     from retto_tpu_torch.cli import main
 
+    # --hf-hub is ported (weights/hub.py): without huggingface_hub it exits
+    # 1 with the ModelNotFoundError message, as the JAX CLI does
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
     assert main(["ocr", str(page_dir), "--device", "cpu", "--hf-hub"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    assert "error: huggingface_hub is not installed" in capsys.readouterr().err
     # every preset is ported now: tiny without weights runs on random ones
     out = tmp_path / "tiny.jsonl"
     assert main(["ocr", str(page_dir), "--device", "cpu", "--preset", "tiny",

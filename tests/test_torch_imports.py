@@ -106,3 +106,41 @@ def test_parallel_and_bigvocab_tool_load_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The names the port exports beside the JAX package's, per subpackage: the
+# torch engine and the fused and ONNX pipelines at the top, torch training's
+# own helpers, the metrics the CLI and server share, the checkpoint
+# converters and the ONNX loaders.
+PORT_ONLY = {
+    "": {"DevicePipeline", "Engine", "FakeEngine", "OnnxEngine", "TorchEngine"},
+    "pipeline": {"DevicePipeline", "OnnxEngine"},
+    "train": {"init_train_state", "param_shardings", "warmup_cosine_decay"},
+    "utils": {"PipelineMetrics"},
+    "weights": {"build_fn", "convert_flax_params", "export_flax_params", "load_flax_params",
+                "load_onnx"},
+}
+RENAMES = {"JaxEngine": "TorchEngine"}
+JAX_ONLY = {"init_random_params"}
+
+
+@pytest.mark.parametrize("sub", ["", "image", "models", "native", "ops", "parallel",
+                                 "pipeline", "train", "utils", "weights"])
+def test_port_exports_what_jax_exports(sub):
+    """Each subpackage's ``__all__`` is the JAX package's, but for the named
+    renames, the JAX-only ``init_random_params`` and the port's named
+    additions; a name is a module in one package only if it is in the
+    other (``ops.det_postprocess`` is the function in both)."""
+    import importlib
+    import inspect
+
+    suffix = f".{sub}" if sub else ""
+    jmod = importlib.import_module("retto_tpu" + suffix)
+    tmod = importlib.import_module("retto_tpu_torch" + suffix)
+    jnames = set(getattr(jmod, "__all__", ())) - JAX_ONLY
+    tnames = set(getattr(tmod, "__all__", ()))
+    assert tnames == {RENAMES.get(n, n) for n in jnames} | PORT_ONLY.get(sub, set())
+    for name in jnames:
+        tname = RENAMES.get(name, name)
+        assert inspect.ismodule(getattr(jmod, name)) == inspect.ismodule(getattr(tmod, tname))
+        assert callable(getattr(jmod, name)) == callable(getattr(tmod, tname)), name

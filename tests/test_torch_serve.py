@@ -226,3 +226,17 @@ def test_compat_session_serves_ocr_through_the_staged_path():
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+def test_listen_backlog_is_the_stated_departure():
+    """The port listens with a backlog of 64 where the JAX server keeps
+    socketserver's 5, which drops a SYN of a burst of 8 connects and costs
+    that client TCP's 1 s retransmission (serve.py docstring)."""
+    from retto_tpu.serve import _Server as JServer
+
+    srv = make_server(fake_session(), "127.0.0.1", 0)
+    try:
+        assert srv.request_queue_size == 64
+    finally:
+        srv.server_close()
+    assert JServer.request_queue_size == 5

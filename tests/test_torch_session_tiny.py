@@ -9,15 +9,20 @@ other orders; measured 0.00 px, 3.0e-8 and 6.0e-8).
 
 Also: ``run_stream``'s det, cls, rec order with results equal to ``run``;
 ``run_many`` isolating a corrupt input; a session without weights giving a
-well-formed result; and the session's one dispatch lock, with the staged
-path and the fused ``DevicePipeline`` driven from two threads at once."""
+well-formed result; the session's one dispatch lock, with the staged
+path and the fused ``DevicePipeline`` driven from two threads at once; and
+the process-wide lock on cuDNN's TF32 flag, with two sessions in two
+threads each seeing its own mode's flag at every float32 conv."""
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 
 from retto_tpu.config import BucketConfig as JBucket, PipelineMode as JMode
 from retto_tpu.config import SessionConfig as JConfig
@@ -154,3 +159,71 @@ def test_staged_and_fused_from_two_threads(sessions):
     assert not errors, errors
     assert out["staged"] == staged_ref
     assert out["fused"] == fused_ref
+
+
+def test_tf32_flag_per_session_mode_from_two_threads(monkeypatch):
+    """Two bf16 sessions in two threads: the fused PERFORMANCE pipeline's
+    BatchNorm convs run with cuDNN's TF32 flag True, the staged engine's
+    (``full_float32``) with it False, at every float32 conv each launches,
+    though the flag is one for the process (``models.common.cudnn_tf32``).
+    On the CPU the convs take XLA:CPU's order and skip the flag, so the
+    test stands in for the card: the cuDNN check says yes, the CPU orders
+    step aside, and a patched ``F.conv2d`` records the flag at its launch
+    and again after a pause that leaves the other thread time to change
+    it."""
+    from retto_tpu_torch.models import common
+
+    monkeypatch.setattr(common, "_uses_cudnn", lambda x: True)
+    monkeypatch.setattr(common, "_conv_f32_cpu", lambda *a, **k: None)
+    monkeypatch.setattr(common, "_depthwise_f32_cpu", lambda *a, **k: None)
+    real = F.conv2d
+    seen: dict[str, list[bool]] = {"fused": [], "staged": []}
+
+    def conv(x, *args, **kwargs):
+        if x.dtype == torch.float32:
+            # the staged session runs on its calling thread, the fused
+            # pipeline on its caller and its own upload thread
+            name = threading.current_thread().name
+            who = seen["staged" if name == "staged" else "fused"]
+            who.append(torch.backends.cudnn.allow_tf32)
+            time.sleep(2e-4)
+            who.append(torch.backends.cudnn.allow_tf32)
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", conv)
+    cfgs = {}
+    for mode in ("performance", "compat"):
+        cfgs[mode] = SessionConfig()
+        cfgs[mode].mode = PipelineMode(mode)
+    imgs = pages()
+    errors: list[BaseException] = []
+    barrier = threading.Barrier(2)
+    with RettoSession(cfgs["performance"], preset="tiny", device="cpu") as a, \
+            RettoSession(cfgs["compat"], preset="tiny", device="cpu") as b:
+        def fused():
+            barrier.wait()
+            for _ in range(3):
+                a.device_pipeline().run_many(imgs)
+
+        def staged():
+            barrier.wait()
+            for _ in range(3):
+                for p in imgs:
+                    b.run(p)
+
+        def guarded(fn):
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=guarded, args=(fn,), name=fn.__name__)
+                   for fn in (fused, staged)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert seen["fused"] and set(seen["fused"]) == {True}
+    assert seen["staged"] and set(seen["staged"]) == {False}

@@ -15,7 +15,17 @@ Cases (``CASES``: rule, classes):
   classes split 3,313 + 3,312.  This JAX refuses an uneven sharding
   (``device_put`` and ``jit`` alike: the dim must divide), so the JAX
   figure is the ``default`` case's run, the same initial state and the same
-  function of it: a sharding does not change what the step computes.
+  function of it: a sharding does not change what the step computes;
+* one case per further kind of spec, each the port's stored block and
+  all-gather at use (``train.trainer._GatherParam``) against JAX with the
+  same rule, on 14 classes: ``row`` (``{"Dense_1": P("model", None)}``,
+  the Dense kernels' rows), ``conv`` (``{"Conv_0": P(None, None, None,
+  "model")}``, every ``Conv_0`` kernel's output channels, the depthwise
+  ones included), ``attention`` (``{"MultiHeadDotProductAttention_0":
+  P(None, "model")}``: the query/key/value kernels' heads, their biases'
+  head width and the output kernel's head width) and ``data``
+  (``{"Dense_0": P("data", "model")}``: the kernels' rows over 'data' and
+  columns over 'model').
 
 Tolerances (float32; the frameworks and the shard sizes sum in other
 orders): losses within 1e-4 relative of JAX's (the bound of
@@ -72,9 +82,33 @@ from retto_tpu_torch.weights import convert_flax_params, export_flax_params, loa
 ROOT = Path(__file__).resolve().parent.parent
 LR, STEPS = 1e-3, 3
 DENSE_1 = {"Dense_1": P(None, "model")}
+GATHERED = {"row": {"Dense_1": P("model", None)},
+            "conv": {"Conv_0": P(None, None, None, "model")},
+            "attention": {"MultiHeadDotProductAttention_0": P(None, "model")},
+            "data": {"Dense_0": P("data", "model")}}
 # case -> (port rule, classes, the JAX run it is held to)
 CASES = {"default": (None, 13, "default"), "Dense_1": (DENSE_1, 14, "Dense_1"),
-         "Dense_1_uneven": (DENSE_1, 13, "default")}
+         "Dense_1_uneven": (DENSE_1, 13, "default"),
+         **{case: (rule, 14, case) for case, rule in GATHERED.items()}}
+# gathered case -> {stored parameter: its block's shape on (data 0, model 0)}
+# (of the tiny rec: mixer 64 wide, 4 heads, MLP 128, 14 classes)
+BLOCKS = {
+    "row": {"Dense_1.parametrizations.weight.original": (14, 32),
+            "SVTRBlock_0.Dense_1.parametrizations.weight.original": (64, 64)},
+    "conv": {"LCNetBackbone_0.ConvBNAct_0.Conv_0.parametrizations.weight.original":
+             (8, 3, 3, 3),
+             "LCNetBackbone_0.DSConv_0.ConvBNAct_0.Conv_0.parametrizations.weight.original":
+             (8, 1, 3, 3)},
+    "attention": {
+        "SVTRBlock_0.MultiHeadDotProductAttention_0.parametrizations.in_proj_weight.original":
+        (96, 64),
+        "SVTRBlock_0.MultiHeadDotProductAttention_0.parametrizations.in_proj_bias.original":
+        (96,),
+        "SVTRBlock_0.MultiHeadDotProductAttention_0.out_proj.parametrizations.weight.original":
+        (64, 32)},
+    "data": {"Dense_0.parametrizations.weight.original": (32, 64),
+             "SVTRBlock_0.Dense_0.parametrizations.weight.original": (64, 32)},
+}
 # case -> (loss vs JAX, loss vs unsharded, params vs JAX, params vs unsharded,
 # batch stats vs global), the largest figure measured over the three steps and
 # the four ranks; a shard-local BatchNorm's statistics are 1.8e-2 off
@@ -113,9 +147,14 @@ mesh = dist.global_mesh(model_parallel=2)
 x = torch.from_numpy(data["x"])
 rest = [torch.from_numpy(data["labels"]), torch.from_numpy(data["lengths"])]
 dense_1 = {"Dense_1": P(None, "model")}
+gathered = {"row": {"Dense_1": P("model", None)},
+            "conv": {"Conv_0": P(None, None, None, "model")},
+            "attention": {"MultiHeadDotProductAttention_0": P(None, "model")},
+            "data": {"Dense_0": P("data", "model")}}
 out = {}
 for case, rules, n in (("default", None, 13), ("Dense_1", dense_1, 14),
-                       ("Dense_1_uneven", dense_1, 13)):
+                       ("Dense_1_uneven", dense_1, 13),
+                       *((c, r, 14) for c, r in gathered.items())):
     flat = {k.split(":", 2)[2]: data[k] for k in data.files if k.startswith(f"init:{n}:")}
     model = load_flax_params(build_rec("tiny", num_classes=n, compute_dtype=None), flat)
     state = init_train_state(model, warmup_cosine_decay(float(data["lr"]), 1, 3), device="cpu",
@@ -131,6 +170,8 @@ for case, rules, n in (("default", None, 13), ("Dense_1", dense_1, 14),
                 out[f"{case}:stats:{name}"] = b.numpy().copy()
     out[f"{case}:losses"] = np.asarray(losses)
     out[f"{case}:head_rows"] = np.asarray(model.Dense_1.weight.shape[0])
+    for name, prm in model.named_parameters():
+        out[f"{case}:block:{name}"] = np.asarray(prm.shape)
     for k, v in export_flax_params(model).items():
         out[f"{case}:params:{k}"] = v
 np.savez(sys.argv[5], rank=rank, data_index=mesh.get_local_rank("data"),
@@ -203,6 +244,10 @@ def runs(tmp_path_factory):
     jrule = {"Dense_1": jax.sharding.PartitionSpec(None, "model")}
     jax_runs = {"default": _jax_run(x, labels, lengths, None, 13),
                 "Dense_1": _jax_run(x, labels, lengths, jrule, 14)}
+    for case, rule in GATHERED.items():
+        jax_runs[case] = _jax_run(x, labels, lengths, _jax_rules(rule), 14)
+        for k, v in jax_runs[case][0].items():  # a sharding does not change the init
+            np.testing.assert_array_equal(v, jax_runs["Dense_1"][0][k])
     with pytest.raises(ValueError, match="divisible"):  # JAX: no uneven shards
         _jax_run(x, labels, lengths, jrule, 13)
     inits = {13: jax_runs["default"][0], 14: jax_runs["Dense_1"][0]}
@@ -234,6 +279,10 @@ def runs(tmp_path_factory):
             "ranks": ranks}
 
 
+def _jax_rules(rules):
+    return {k: jax.sharding.PartitionSpec(*v) for k, v in rules.items()}
+
+
 def _rank_params(ranks, case):
     """The full parameters, from the ranks of data index 0 (a kernel split
     over 'model' joined along its Flax [D, C] last axis); asserts that every
@@ -242,7 +291,7 @@ def _rank_params(ranks, case):
     by = {(int(r["data_index"]), int(r["model_index"])): r for r in ranks}
     full = {}
     for k in (k for k in by[0, 0] if k.startswith(pre)):
-        split = case != "default" and k.endswith("Dense_1::kernel")
+        split = case.startswith("Dense_1") and k.endswith("Dense_1::kernel")
         for d, m in ((1, 0), (0, 1), (1, 1)):
             ref = by[0, m if split else 0][k]
             np.testing.assert_array_equal(by[d, m][k], ref, err_msg=f"{k} {d} {m}")
@@ -269,7 +318,10 @@ def test_sharded_params_match_jax_and_unsharded(runs, case):
     ranks = runs["ranks"]
     rows = {int(r["model_index"]): int(r[f"{case}:head_rows"]) for r in ranks}
     assert rows == {"default": {0: 13, 1: 13}, "Dense_1": {0: 7, 1: 7},
-                    "Dense_1_uneven": {0: 7, 1: 6}}[case]
+                    "Dense_1_uneven": {0: 7, 1: 6}}.get(case, {0: 14, 1: 14})
+    first = next(r for r in ranks if int(r["data_index"]) == int(r["model_index"]) == 0)
+    for name, shape in BLOCKS.get(case, {}).items():
+        assert tuple(first[f"{case}:block:{name}"]) == shape, (case, name)
     if case == "Dense_1":
         assert runs["jax"][case][4] == jax.sharding.PartitionSpec(None, "model")
     mine = _rank_params(ranks, case)
@@ -335,3 +387,37 @@ def test_param_shardings_pick_jax_parameters(kind):
 
 def _key(path) -> str:
     return "::".join(["params", *(str(getattr(p, "key", p)) for p in path)])
+
+
+def test_gathered_specs_bit_equal_at_world_size_one(monkeypatch):
+    """One gloo rank (mesh (1, 1)) under every gathered spec at once: the
+    stored blocks are whole, and three steps give the unsharded step's
+    losses and parameters bit for bit."""
+    from retto_tpu_torch.parallel import distributed as dist
+    import torch.distributed as tdist
+
+    monkeypatch.setattr(dist, "_initialized", False)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    x, labels, lengths = _batch()
+    torch.manual_seed(0)
+    init = export_flax_params(build_rec("tiny", num_classes=13, compute_dtype=None))
+    want_losses, _, want = _port_unsharded(init, x, labels, lengths)
+    assert dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu", timeout_s=60)
+    try:
+        mesh = dist.global_mesh()
+        rules = {k: v for rule in GATHERED.values() for k, v in rule.items()}
+        tm = load_flax_params(build_rec("tiny", num_classes=13, compute_dtype=None), init)
+        state = init_train_state(tm, warmup_cosine_decay(LR, 1, STEPS), device="cpu",
+                                 mesh=mesh, rules=rules)
+        stored = [n for n, _ in tm.named_parameters() if n.endswith(".original")]
+        assert len(stored) >= 4 + 2 * len(tm.mixer)
+        step = make_train_step(tm, ctc_loss, forward=_forward, mesh=mesh)
+        rest = (torch.from_numpy(labels), torch.from_numpy(lengths))
+        losses = [float(step(state, torch.from_numpy(x), *rest)[1]) for _ in range(STEPS)]
+        got = export_flax_params(tm)
+    finally:
+        tdist.destroy_process_group()
+    assert losses == want_losses
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
