@@ -119,7 +119,16 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    retto_tpu_torch.train.train_bigvocab --device cuda`` at
    ``BIGVOCAB_RUN``: every loss finite, steps/s, and ``rec_big.npz``
    reloaded into the port with the trained model's probe digest;
-13. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
+13. probes: the three device probes' ``measure`` in-process
+   (``retto_tpu_torch.tools.stage_probe``, ``det_probe``,
+   ``clsrec_probe``) with the mobile checkpoints at their default sizes,
+   one line per stage (best and median ms, FLOPs, MFU); a stage that reads
+   0 ms or a non-finite time, or an MFU above 1, fails the run, as does a
+   sum of one call's device stages (det per chunk, each cls + rec bucket)
+   above 1.1 times phase 3's warm 16-page wall time, or a stage probe in
+   which the det epilogue never launches (``probe_launches`` in the
+   kernels line);
+14. a JSON line ``{"kernels": [...]}`` and, last, the JSON line
    ``{"ok": true, "device": {...}}``.
 
 ``compile_count()`` (captured graphs) is printed after each phase.
@@ -244,12 +253,18 @@ BACKLOG_ROUNDS = 3
 # where the JAX tool reads it right, for TEXT_MATCH_MIN of the lines.  Its
 # misread lines are not held text for text: among 6,625 classes a bf16 sum
 # in another order flips near-tied characters of a misread (4 of 65 lines
-# on the card, one character each; 2 on the CPU,
+# on the card, one character each; 1 on the CPU,
 # tests/test_torch_eval_tools.py)
 EVAL_TALLIES = ("[big-pipe] pages:", "[big-pipe] det boxed-all-lines",
                 "[big-pipe] rec exact line match", "[big-pipe] pages fully exact")
 # the big-vocab tool's short run: (steps, lines, batch, pipeline pages)
 BIGVOCAB_RUN = (24, 128, 16, 2)
+# probes: the device stages of one 16-page call may exceed phase 3's warm
+# wall time by this factor at most (the stages are timed alone, each with a
+# synchronize; in the call they overlap the host's work)
+PROBE_WALL_SLACK = 1.1
+# probes: warm calls per stage (stage and det probes, clsrec probe)
+PROBE_ITERS = (3, 5)
 
 
 def say(phase: str, **kw) -> None:
@@ -1725,6 +1740,41 @@ def onnx_phase(fx) -> int:
     return launches
 
 
+def probes_phase(e2e_images_per_s: float) -> int:
+    """The three probes' ``measure`` in-process on the card with the mobile
+    checkpoints; returns the det epilogue launches the stage probe made."""
+    from retto_tpu_torch.tools import clsrec_probe, det_probe, stage_probe
+    from retto_tpu_torch.tools._common import check_rows
+
+    t = time.perf_counter()
+    weights = str(ROOT / "trained_weights")
+    db_pack.db_epilogue.launches = 0
+    stage_rows, info = stage_probe.measure("cuda", weights, iters=PROBE_ITERS[0])
+    probe_launches = db_pack.db_epilogue.launches
+    det_rows = det_probe.measure("cuda", iters=PROBE_ITERS[0], weights=weights)
+    cls_rows = clsrec_probe.measure("cuda", iters=PROBE_ITERS[1], weights=weights)
+    for probe, rows in (("stage", stage_rows), ("det", det_rows), ("clsrec", cls_rows)):
+        for r in rows:
+            say("probes", probe=probe, stage=repr(r.label), kind=r.kind, ms=f"{r.ms:.4f}",
+                median_ms=f"{r.median_ms:.4f}", per_call=r.per_call, flops=f"{r.flops:.6g}",
+                mfu=f"{r.mfu:.6f}")
+        bad = check_rows(rows)
+        if bad:
+            fail(f"probe {probe}: " + "; ".join(bad))
+    wall16 = 16 / e2e_images_per_s * 1e3
+    say("probes", device_stages_ms=f"{info['device_sum_ms']:.4f}", det_chunks=info["det_chunks"],
+        clsrec_buckets=info["buckets"], e2e_wall16_ms=f"{wall16:.4f}",
+        probe_run_many_ms=f"{info['wall_ms']:.4f}",
+        det_model_gflop=f"{info['det_model_flops'] / 1e9:.4f}", probe_launches=probe_launches,
+        phase_s=f"{time.perf_counter() - t:.1f}")
+    if info["device_sum_ms"] > PROBE_WALL_SLACK * wall16:
+        fail(f"the probe's device stages ({info['device_sum_ms']:.3f} ms) exceed "
+             f"{PROBE_WALL_SLACK} x the 16-page wall time ({wall16:.3f} ms)")
+    if probe_launches <= 0:
+        fail("the stage probe never launched the db_epilogue kernel")
+    return probe_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
@@ -1749,6 +1799,7 @@ def main() -> None:
     t = time.perf_counter()
     par = parallel_phase(fx, e2e_res, e2e_images_per_s)
     say("parallel", phase_s=f"{time.perf_counter() - t:.1f}")
+    probe_launches = probes_phase(e2e_images_per_s)
     kernel_line = {"kernels": [{
         "name": "db_epilogue",
         "route": "cuda",
@@ -1760,6 +1811,7 @@ def main() -> None:
         "onnx_launches": onnx_launches,
         "mesh_launches": par["cuda0x2"]["launches"],
         "eval_launches": eval_launches,
+        "probe_launches": probe_launches,
         "exact": True,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],

@@ -43,6 +43,7 @@ import math
 import threading
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -162,70 +163,203 @@ def xla_hw_sum(x: torch.Tensor, scale: float | None = None, window: int = 32
     return xla_hw_sum(_sum_in_order(x.movedim(-3, -2).flatten(-2), scale), window=window)
 
 
-def _xla_dot_order(m: int, k: int, n: int) -> tuple[str, int]:
-    """The order in which XLA:CPU's float32 dot [M, K] x [K, N] sums its K
-    products, as read against ``jax.jit(jnp.dot)`` at the SE gates' shapes
-    (Eigen's blocking, which depends on the shape;
-    tools/cpu_parity_probe.py dw): ``("lanes", L)``, L interleaved partial
-    sums (term i into sum i mod L) added pairwise; or ``("blocks", B)``,
+# XLA:CPU runs a bf16 ``dot`` as a float32 dot on converted operands (the
+# compiled HLO converts both first), so AMX's bf16 tiles never sum it; the
+# constants below are its runtime's blocking, read on an AVX-512 host with
+# AMX (tools/cpu_parity_probe.py, tests/test_torch_cpu_threads.py)
+_DOT_PANEL = 32768  # float32 terms of one K block x column tile (128 KiB)
+_DOT_TILE_BUDGET = 131072  # K * (tile + 2 * rows) stays below this
+_DOT_TILE_ROWS = 65536  # rows * tile at most this
+
+
+def _dot_column_tile(m: int, k: int) -> int:
+    """Column tile of XLA:CPU's dot at 2-50 rows: the widest power of two
+    ``t`` with ``k * (t + 2 * r) < 131072`` and ``r * t <= 65536``, where
+    ``r`` is ``m`` up to 16 rows, else ``m`` rounded up to a power of two."""
+    r = m if m <= 16 else 1 << (m - 1).bit_length()
+    t = 1
+    while k * (2 * t + 2 * r) < _DOT_TILE_BUDGET and r * 2 * t <= _DOT_TILE_ROWS:
+        t *= 2
+    return t
+
+
+def _dot_width_lanes(n: int) -> int:
+    """Lanes of XLA:CPU's dot from 51 rows (or over a minor-contracted right
+    operand) for output width ``n``, read at every width of 2-199 and at the
+    rec's: with ``r = (n - 1) % 64 + 1``, 49-64 -> 1 (sequential), 17-32 ->
+    2 but for ``n <= 24``, else 4."""
+    r = (n - 1) % 64 + 1
+    if r > 48:
+        return 1
+    return 2 if 17 <= r <= 32 and n > 24 else 4
+
+
+def _xla_dot_order(m: int, k: int, n: int, fused: bool = False, rhs_t: bool = False
+                   ) -> list[tuple[int, int, str, int]]:
+    """The orders in which XLA:CPU's dot [M, K] x [K, N] sums its K products
+    (float32 products of bf16 values), as ``(first column, end column, kind,
+    size)`` per column range: ``("lanes", L)``, L interleaved partial sums
+    (term i into sum i mod L) over the whole groups of L terms, added
+    pairwise, plus the sum of the terms left over; ``("blocks", B)``,
     blocks of B terms each summed from zero, the block sums added in order
-    (B = K: one sequential sum).
+    (B = K: one sequential sum); ``("vector", 0)``, :func:`_vector_dot`'s
+    loop.  Read against ``jax.jit`` dots with operands that reveal the
+    summation tree (a +-2^40 pair among ones: the result counts the terms
+    outside their smallest common subtree), at every M of 1-50 and 51-512
+    for the rec's, the big-vocab head's and the cls's (K, N), at K of 8-608
+    for the tile rule, and for the attention's batched products
+    (tests/test_torch_cpu_threads.py):
 
-    From 51 rows on the order follows the output width N alone, at every
-    K read (64-512) and N read (4-6,625), by N mod 64: 20-32 -> 2 lanes,
-    0 or 52-63 -> sequential, else 4 lanes (read against ``jax.jit(a @ w)``
-    on bf16 operands at 52-512 rows, tests/test_torch_cpu_threads.py;
-    XLA:CPU's single- and multi-threaded Eigen give the same bits).  Below
-    51 rows XLA takes other orders, not all read: shapes not read take the
-    sequential sum."""
-    if m >= 2:
-        if (k, n) == (64, 16):
-            return "lanes", 4
-        if (k, n) == (512, 128) and m <= 32:
-            return "blocks", 256
-        if (k, n) == (128, 512) and m <= 50:
-            return "blocks", 64
-    if m >= 51:
-        r = n % 64
-        if 20 <= r <= 32:
-            return "lanes", 2
-        if 0 < r < 52:
-            return "lanes", 4
-    return "blocks", k
+    * M = 1 or N = 1: a bf16 dot whose operand converts XLA fuses into it
+      (``fused``: a Dense on one row) runs as one vectorised loop
+      (:func:`_vector_dot`); a dot of float32 operands (the SE gates) sums
+      in order.
+    * The right operand stored [N, K] (``rhs_t``, the attention's value
+      product over more than one line), or from 51 rows: by the output
+      width alone (:func:`_dot_width_lanes`; the same bits at XLA's 1 and 8
+      threads).
+    * 2-50 rows, N <= 16: 4 lanes, or sequential when both M and N are
+      below 4.
+    * 2-50 rows, N > 16: the columns split into tiles of
+      :func:`_dot_column_tile` (the last one narrower), and a tile of width
+      t sums blocks of ``32768 // t`` terms (K x t panels of 128 KiB).
+
+    The lane counts and vector widths are the AVX-512 host's (XLA prefers
+    256-bit vectors there, 8 float32 lanes); a host of other ISA or cache
+    sizes may block otherwise."""
+    if m == 1 or n == 1:
+        return [(0, n, "vector", 0) if fused else (0, n, "blocks", k)]
+    if rhs_t or m >= 51:
+        lanes = _dot_width_lanes(n)
+        return [(0, n, *(("lanes", lanes) if lanes > 1 else ("blocks", k)))]
+    if n <= 16:
+        return [(0, n, *(("lanes", 4) if max(m, n) >= 4 else ("blocks", k)))]
+    tile = _dot_column_tile(m, k)
+    return [(c, min(c + tile, n), "blocks", min(k, _DOT_PANEL // min(tile, n - c)))
+            for c in range(0, n, tile)]
 
 
-def xla_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """float32 [M, K] x [K, N] summed in :func:`_xla_dot_order`'s order
-    (the native ``dot_xla_native``, else term by term in torch).  Products
-    of compute-dtype values are exact in float32, so the order alone
-    decides the bits, whatever the intra-op thread count."""
-    from ..native import dot_xla_native
-
-    a, w = a.float(), w.float()
-    m, k = a.shape
-    kind, size = _xla_dot_order(m, k, w.shape[1])
-    out = dot_xla_native(a.detach().numpy(), w.detach().numpy(),
-                         *((size, k) if kind == "lanes" else (1, size)),
-                         torch.get_num_threads())
-    if out is not None:
-        return torch.from_numpy(out)
-
-    def chain(ks: range) -> torch.Tensor:  # term by term from +0
-        s = a[:, ks[0], None] * w[ks[0]] + 0.0
+def ordered_sum(term: Callable[[int], torch.Tensor], k: int, kind: str, size: int
+                ) -> torch.Tensor:
+    """``sum(term(i) for i in range(k))`` in float32 in one of
+    :func:`_xla_dot_order`'s orders (``"lanes"`` or ``"blocks"``), each
+    partial sum term by term from +0."""
+    def chain(ks) -> torch.Tensor:
+        s = term(ks[0]).float() + 0.0
         for i in ks[1:]:
-            s += a[:, i, None] * w[i]
+            s = s + term(i)
         return s
 
     if kind == "lanes":
-        parts = [chain(range(i, k, size)) for i in range(min(size, k))]
+        whole = k // size * size
+        if not whole:
+            return chain(range(k))
+        parts = [chain(range(i, whole, size)) for i in range(size)]
         while len(parts) > 1:
             parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
-        return parts[0]
+        return parts[0] + chain(range(whole, k)) if whole < k else parts[0]
     out = None
     for b in range(0, k, size):
         blk = chain(range(b, min(b + size, k)))
         out = blk if out is None else out + blk
     return out
+
+
+def xla_batched_dot(a: torch.Tensor, b: torch.Tensor, rhs_t: bool = False) -> torch.Tensor:
+    """float32 [..., M, K] x [..., K, N] summed in :func:`_xla_dot_order`'s
+    order for each batch entry (``rhs_t``: XLA stores the right operand
+    [..., N, K]); the native ``dot_xla_native`` per entry, else term by term
+    in torch."""
+    from ..native import dot_xla_native
+
+    a, b = a.float(), b.float()
+    (m, k), n = a.shape[-2:], b.shape[-1]
+    batch = a.shape[:-2]
+    a3 = a.reshape(-1, m, k).detach().numpy()
+    b3 = b.reshape(-1, k, n).detach().numpy()
+    parts = []
+    for c0, c1, kind, size in _xla_dot_order(m, k, n, rhs_t=rhs_t):
+        args = (size, k) if kind == "lanes" else (1, size)
+        outs = [dot_xla_native(a3[i], b3[i, :, c0:c1], *args, torch.get_num_threads())
+                for i in range(a3.shape[0])]
+        if all(o is not None for o in outs):
+            parts.append(torch.from_numpy(np.stack(outs)).reshape(*batch, m, c1 - c0))
+        else:
+            bt = b[..., c0:c1]
+            parts.append(ordered_sum(lambda i: a[..., :, i, None] * bt[..., i, None, :], k,
+                                     kind, size))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _vector_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 [M, K] x [K, N] with M = 1 or N = 1 in the order of XLA:CPU's
+    fused loop, which LLVM vectorises with 8 lanes (term k in lane k mod 8)
+    and 4 accumulators (blocks of 32 terms, accumulator j taking terms
+    8j-8j+7 of each block), read at K of 40-128, 240, 256 and 512:
+
+    * each lane sums accumulator 0's terms in order, then 1, 2 and 3: as
+      one chain in which each later accumulator's first two terms swap when
+      the loop is unrolled (at most 3 blocks, or 7 with N = 2), else as
+      ``((acc0 + acc1) + acc2) + acc3``;
+    * the lanes reduce as ``((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7))``;
+    * an epilogue of 8 lanes sums the next whole groups of 8 terms, lane 0
+      starting from that result, and reduces the same way;
+    * the remaining terms add in order.
+
+    N > 2 runs K // 32 blocks and every whole group of 8 left; N = 2
+    (interleaved operand loads) keeps at least one term for the scalar
+    loop: (K - 1) // 32 blocks, then no epilogue when 32 terms remain, else
+    (r - 1) // 8 groups of the r left.  Below 40 terms the loop is not
+    vectorised (one sequential sum)."""
+    k = a.shape[1]
+    terms = [a[:, i, None] * w[i] for i in range(k)]  # exact in float32
+
+    def chain(xs):
+        s = xs[0] + 0.0
+        for x in xs[1:]:
+            s = s + x
+        return s
+
+    def reduce8(v):
+        return ((v[0] + v[4]) + (v[2] + v[6])) + ((v[1] + v[5]) + (v[3] + v[7]))
+
+    if k < 40:
+        return chain(terms)
+    if w.shape[1] == 2:
+        blocks = (k - 1) // 32
+        left = k - 32 * blocks
+        groups = 0 if left == 32 else (left - 1) // 8
+        unrolled = blocks <= 7
+    else:
+        blocks = k // 32
+        groups = k % 32 // 8
+        unrolled = blocks <= 3
+    lanes = []
+    for lane in range(8):
+        accs = [[terms[lane + 8 * j + 32 * i] for i in range(blocks)] for j in range(4)]
+        if unrolled:
+            lanes.append(chain(accs[0] + [x for acc in accs[1:]
+                                          for x in acc[1::-1] + acc[2:]]))
+        else:
+            lanes.append(chain([chain(acc) for acc in accs]))
+    s = reduce8(lanes)
+    done = 32 * blocks
+    if groups:
+        s = reduce8([chain(([s] if lane == 0 else []) +
+                           [terms[done + 8 * g + lane] for g in range(groups)])
+                     for lane in range(8)])
+        done += 8 * groups
+    return chain([s] + terms[done:])
+
+
+def xla_dot(a: torch.Tensor, w: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """float32 [M, K] x [K, N] summed in :func:`_xla_dot_order`'s order
+    (``fused``: a bf16 Dense, whose operand converts XLA fuses into a dot of
+    one row).  Products of compute-dtype values are exact in float32, so
+    the order alone decides the bits, whatever the intra-op thread count."""
+    if fused and 1 in (a.shape[0], w.shape[1]):
+        return _vector_dot(a.float(), w.float())
+    return xla_batched_dot(a, w)
 
 
 def linear_nobias(x: torch.Tensor, w: torch.Tensor, training: bool = False) -> torch.Tensor:
@@ -236,7 +370,7 @@ def linear_nobias(x: torch.Tensor, w: torch.Tensor, training: bool = False) -> t
     ``F.linear``."""
     if x.is_cuda or training or w.dtype == torch.float32:
         return F.linear(x, w)
-    y = xla_dot(x.reshape(-1, x.shape[-1]), w.t()).to(w.dtype)
+    y = xla_dot(x.reshape(-1, x.shape[-1]), w.t(), fused=True).to(w.dtype)
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 

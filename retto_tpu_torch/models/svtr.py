@@ -29,6 +29,7 @@ from .common import (
     SEModule,
     linear_nobias,
     mean_f32,
+    xla_batched_dot,
     xla_hw_sum,
 )
 
@@ -145,12 +146,15 @@ class MultiHeadDotProductAttention(nn.Module):
         rounded sum.
 
         On the CPU both products and the softmax sum are float32 sums in
-        one fixed order, so the bits do not depend on the intra-op thread
-        count or on the kernel a library picks: the products term by term
-        over Dh and over keys (products of compute-dtype values are exact
-        in float32), the exps in XLA's windows (``_xla_row_sum``).  On the
-        card, and in training (``fixed_order=False``), the products run on
-        the BLAS."""
+        XLA:CPU's order, so the bits do not depend on the intra-op thread
+        count or on the kernel a library picks: the products as XLA lays
+        them out (:func:`xla_batched_dot`; products of compute-dtype values
+        are exact in float32), the query-key product [Tq, Dh] x [Dh, Tk],
+        the value product transposed, [Dh, Tk] x [Tk, Tq], with the weights
+        stored [Tq, Tk] (the right operand minor-contracted) unless the
+        batch is one line; the exps summed in XLA's windows
+        (``_xla_row_sum``).  On the card, and in training
+        (``fixed_order=False``), the products run on the BLAS."""
         dh = q.shape[-1]
         inv = 1.0 / float(torch.tensor(math.sqrt(dh), dtype=q.dtype))
         q = (q.float() * inv).to(q.dtype)
@@ -159,19 +163,14 @@ class MultiHeadDotProductAttention(nn.Module):
             e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
             w = e.to(q.dtype) / e.sum(dim=-1, keepdim=True).to(q.dtype)
             return torch.einsum("nhqk,nkhd->nqhd", w, v)
-        qh = q.float().permute(0, 2, 1, 3)  # [N, H, Tq, Dh]
-        kh = k.float().permute(0, 2, 1, 3)  # [N, H, Tk, Dh]
-        vh = v.float().permute(0, 2, 1, 3)
-        w = qh[..., :, None, 0] * kh[..., None, :, 0]
-        for d in range(1, dh):
-            w = w + qh[..., :, None, d] * kh[..., None, :, d]
-        w = w.to(q.dtype)
+        qh = q.permute(0, 2, 1, 3)  # [N, H, Tq, Dh]
+        kt = k.permute(0, 2, 3, 1)  # [N, H, Dh, Tk]
+        vt = v.permute(0, 2, 3, 1)  # [N, H, Dh, Tk]
+        w = xla_batched_dot(qh, kt).to(q.dtype)
         e = torch.exp((w - w.amax(dim=-1, keepdim=True)).float())
-        p = (e.to(q.dtype) / _xla_row_sum(e)[..., None].to(q.dtype)).float()
-        out = p[..., :, 0, None] * vh[..., None, 0, :]
-        for j in range(1, vh.shape[2]):
-            out = out + p[..., :, j, None] * vh[..., None, j, :]
-        return out.to(q.dtype).permute(0, 2, 1, 3)
+        p = e.to(q.dtype) / _xla_row_sum(e)[..., None].to(q.dtype)
+        out = xla_batched_dot(vt, p.transpose(-1, -2), rhs_t=q.shape[0] > 1)  # [N, H, Dh, Tq]
+        return out.to(q.dtype).permute(0, 3, 1, 2)
 
 
 class SVTRBlock(nn.Module):

@@ -14,6 +14,7 @@ active.  Force with RETTO_NATIVE=0/1.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import logging
 import os
@@ -43,6 +44,20 @@ def _build_lib() -> Path | None:
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         logger.warning("native postprocess build failed (%s); using numpy", e)
         return None
+
+
+@contextlib.contextmanager
+def switched_off():
+    """Within the block the library reads as absent, so every caller takes
+    its torch or numpy fallback: the port's CPU convs then run as torch
+    ops, which torch's FLOP counter sees (the probes' counts on the CPU)."""
+    global _LIB, _TRIED
+    saved = _LIB, _TRIED
+    _LIB, _TRIED = None, True
+    try:
+        yield
+    finally:
+        _LIB, _TRIED = saved
 
 
 def _load() -> ctypes.CDLL | None:

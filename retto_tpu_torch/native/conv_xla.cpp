@@ -15,9 +15,11 @@
 //
 // Also a float32 dot [m, k] x [k, n] summed in one of XLA:CPU's orders
 // (``models.common._xla_dot_order``): the k terms in blocks of `block`, each
-// block's terms dealt to `lanes` partial sums (term i to partial i mod
-// lanes), each partial a fused multiply-add chain from zero, the partials
-// added pairwise, the blocks' sums added in order.  Rows run on `threads`
+// block's whole groups of `lanes` terms dealt to `lanes` partial sums (term
+// i to partial i mod lanes), each partial a fused multiply-add chain from
+// zero, the partials added pairwise, the terms that fill no group summed in
+// one more chain and added to that, the blocks' sums added in order.  Rows
+// run on `threads`
 // threads; each row's order is fixed, so the bits do not depend on them.
 //
 // Also XLA:CPU's float32 rsqrt: the hardware estimate (`rsqrtps`) refined
@@ -113,7 +115,9 @@ void dot_rows(const float* a, const float* w, float* out, int k, int n, int lane
     for (int b0 = 0; b0 < k; b0 += block) {
       std::fill(part.begin(), part.end(), 0.0f);
       const int b1 = std::min(k, b0 + block);
-      for (int i = b0; i < b1; ++i) {
+      // the lanes take whole groups of ``lanes`` terms
+      const int lanes_end = b0 + (b1 - b0) / lanes * lanes;
+      for (int i = b0; i < lanes_end; ++i) {
         float* acc = part.data() + static_cast<size_t>((i - b0) % lanes) * n;
         const float v = ar[i];
         const float* wr = w + static_cast<long>(i) * n;
@@ -125,6 +129,16 @@ void dot_rows(const float* a, const float* w, float* out, int k, int n, int lane
           const float* y = x + static_cast<size_t>(width) * n;
           for (int j = 0; j < n; ++j) x[j] += y[j];
         }
+      }
+      if (lanes_end < b1) {  // the terms left over: one chain (in lane 1's
+        float* tail = part.data() + n;  // spent slot), then one add
+        std::fill(tail, tail + n, 0.0f);
+        for (int i = lanes_end; i < b1; ++i) {
+          const float v = ar[i];
+          const float* wr = w + static_cast<long>(i) * n;
+          for (int j = 0; j < n; ++j) tail[j] = std::fma(v, wr[j], tail[j]);
+        }
+        for (int j = 0; j < n; ++j) part[j] += tail[j];
       }
       for (int j = 0; j < n; ++j) o[j] = b0 == 0 ? part[j] : o[j] + part[j];
     }

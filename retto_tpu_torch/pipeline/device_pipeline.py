@@ -84,7 +84,7 @@ from ..config import SessionConfig, rot180_label_perm
 from ..errors import RettoError
 from ..geometry import PointBox, scale_and_clip
 from ..image.io import ImageHelper, decode_image, perspective_coeffs
-from ..image.warp import _axis_matrix, warp_crops_multi
+from ..image.warp import _axis_matrix, blend_fill, warp_cols, warp_crops_multi, warp_rows
 from ..image.yuv import rgb_to_yuv420, yuv420_to_rgb_device, yuv_planes_to_rgb
 from ..models.dbnet import DetModel
 from ..ops.charset import CharacterDict
@@ -110,6 +110,9 @@ from .stages import _bucket_up, _next_bucket, det_input_dims
 __all__ = ["DevicePipeline"]
 
 logger = logging.getLogger("retto_tpu_torch.device_pipeline")
+
+
+_INV255 = float(np.float32(1.0 / 255.0))
 
 
 def _bilinear_matrix(
@@ -491,8 +494,10 @@ class DevicePipeline:
             return x if x.shape[1] == 3 else x.expand(x.shape[0], 3, *x.shape[2:])
 
         def norm_nchw(crops, widths):
-            # resize_norm_image semantics (image_helper.rs:176-209)
-            x = (crops / 255.0 - 0.5) / 0.5
+            # resize_norm_image semantics (image_helper.rs:176-209),
+            # (crops / 255 - 0.5) / 0.5 as XLA compiles it: one fused
+            # multiply-add by float32(1/255), then times 2 (exact)
+            x = (crops.double() * _INV255 - 0.5).float() * 2.0
             col = torch.arange(crops.shape[2], device=crops.device)[None, None, :, None]
             x = torch.where(col < widths[:, None, None, None], x, torch.zeros_like(x))
             return x.permute(0, 3, 1, 2)
@@ -505,12 +510,12 @@ class DevicePipeline:
             # one vertical pass on rh+1 rows serves all views: the flipped
             # view's row v samples p(rh - v), i.e. rows rh..1 reversed
             wv, mv = _axis_matrix(rec_homogs[:, 2], rec_homogs[:, 3], h, rh + 1, vh)
-            t_ext = torch.einsum("ndh,nhwc->ndwc", wv.to(bf16), src)
+            t_ext = warp_rows(wv, src)
             t_up, m_up = t_ext[:, :rh], mv[:, :rh]
             t_fl, m_fl = t_ext[:, 1:rh + 1].flip(1), mv[:, 1:rh + 1].flip(1)
             if ch != rh:
                 wvc, mvc = _axis_matrix(cls_homogs[:, 2], cls_homogs[:, 3], h, ch + 1, vh)
-                tc_ext = torch.einsum("ndh,nhwc->ndwc", wvc.to(bf16), src)
+                tc_ext = warp_rows(wvc, src)
                 tc_up, mc_up = tc_ext[:, :ch], mvc[:, :ch]
                 tc_fl, mc_fl = tc_ext[:, 1:ch + 1].flip(1), mvc[:, 1:ch + 1].flip(1)
             else:
@@ -518,9 +523,7 @@ class DevicePipeline:
 
             def wpass(t_, mv_, xscal, out_w_):
                 wu, mu = _axis_matrix(xscal[:, 0], xscal[:, 1], w, out_w_, vw)
-                out = torch.einsum("new,ndwc->ndec", wu.to(bf16), t_).to(torch.float32)
-                mass = mv_[:, :, None] * mu[:, None, :]
-                return out + (1.0 - mass)[..., None] * 255.0
+                return blend_fill(warp_cols(wu, t_), mv_, mu, 255.0)
 
             def warp_cls():
                 return wpass(tc_up, mc_up, cls_homogs, cw)

@@ -532,22 +532,16 @@ def render_cls_pipeline_dataset(rng, n_pages=1600, device: str | torch.device = 
     return crops
 
 
-def _crop_output_size(q: np.ndarray) -> tuple[int, int, bool]:
-    """(h, w, rotate) of the reference's crop of quad ``q`` (JAX
-    ``image/warp.py::crop_output_size``, image_helper.rs:225-247)."""
-    from ..geometry import PointBox
-
-    box = PointBox(q)
-    w = max(int(max(box.width_brc(), box.width_tlc())), 1)
-    h = max(int(max(box.height_brc(), box.height_tlc())), 1)
-    return h, w, h / w >= 1.5
-
-
 def warp_crops_like_inference(ih, boxes, rec_h=REC_H, rec_w=REC_W):
     """Warp det boxes to rec crops through the separable bilinear kernel
     the fused pipeline's warp applies at inference (``_aligned_scal``
     geometry), in numpy.  Returns one [48, tw, 3] u8 crop per box, None
-    for a tall box (a rotate crop) or one outside the image."""
+    for a tall box (a rotate crop) or one outside the image.  The numpy
+    arithmetic is the JAX tool's own (float64 tap weights, rounded to
+    float32), not ``image.warp.warp_crops_separable``'s float32 torch
+    passes, which put some codes one apart from the tool's."""
+    from ..geometry import PointBox
+    from ..image.warp import crop_output_size
     from ..pipeline.device_pipeline import _aligned_scal
 
     def _axis_np(o, s, src, dst):
@@ -561,7 +555,7 @@ def warp_crops_like_inference(ih, boxes, rec_h=REC_H, rec_w=REC_W):
     out = []
     for b in boxes:
         q = np.asarray(b, np.float64)
-        h_c, w_c, rot = _crop_output_size(q)
+        h_c, w_c, rot = crop_output_size(PointBox(q))
         if rot:
             out.append(None)
             continue

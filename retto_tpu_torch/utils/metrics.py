@@ -4,8 +4,8 @@ SURVEY.md §5 plan: images/sec, p50/p99 latency, bucket occupancy and
 padding-waste fractions — the metrics the reference lacks (it logs only a
 single aggregate avg, retto-cli/src/main.rs:89-93).
 
-Port copy of ``retto_tpu/utils/metrics.py::PipelineMetrics`` without the
-``jax.profiler`` trace hook.
+Port copy of ``retto_tpu/utils/metrics.py``: ``PipelineMetrics`` as it is,
+and ``profile_trace`` over ``torch.profiler`` in place of ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["PipelineMetrics"]
+__all__ = ["PipelineMetrics", "profile_trace"]
 
 
 @dataclass
@@ -83,3 +83,26 @@ class PipelineMetrics:
                 k: round(v, 4) for k, v in self.stage_time.items()
             },
         }
+
+
+@contextmanager
+def profile_trace(logdir: str):
+    """``torch.profiler`` trace of the block: host (CPU) activity, and the
+    card's kernels when CUDA is available.  On exit it writes a Chrome trace
+    (``trace.json``) into ``logdir``, created if missing, which Perfetto
+    (ui.perfetto.dev) or ``chrome://tracing`` opens; yields the profiler,
+    whose ``key_averages()`` tables the same run."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities, record_shapes=True) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -84,10 +84,14 @@ def test_cli_and_serve_entry_points_load_no_jax():
                                     "retto_tpu_torch.weights.onnx_bridge",
                                     "retto_tpu_torch.weights.replica",
                                     "retto_tpu_torch.pipeline.onnx_engine",
-                                    "retto_tpu_torch.utils.flops"])
+                                    "retto_tpu_torch.utils.flops",
+                                    "retto_tpu_torch.tools.stage_probe",
+                                    "retto_tpu_torch.tools.det_probe",
+                                    "retto_tpu_torch.tools.clsrec_probe"])
 def test_onnx_path_modules_load_no_jax(module):
-    """The ONNX path and the FLOP accounting, each imported alone in a fresh
-    interpreter, load no jax, flax, retto_tpu or PIL module."""
+    """The ONNX path, the FLOP accounting and the device probes, each
+    imported alone in a fresh interpreter, load no jax, flax, retto_tpu or
+    PIL module."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'retto_tpu', 'PIL')]\n"
@@ -125,12 +129,14 @@ JAX_ONLY = {"init_random_params"}
 
 
 @pytest.mark.parametrize("sub", ["", "image", "models", "native", "ops", "parallel",
-                                 "pipeline", "train", "utils", "weights"])
+                                 "pipeline", "train", "utils", "weights", "image.warp",
+                                 "utils.metrics"])
 def test_port_exports_what_jax_exports(sub):
     """Each subpackage's ``__all__`` is the JAX package's, but for the named
     renames, the JAX-only ``init_random_params`` and the port's named
     additions; a name is a module in one package only if it is in the
-    other (``ops.det_postprocess`` is the function in both)."""
+    other (``ops.det_postprocess`` is the function in both).  The modules
+    ``image.warp`` and ``utils.metrics`` export JAX's names too."""
     import importlib
     import inspect
 

@@ -76,15 +76,18 @@ def test_db_post_exact(dilate, dtype):
 
 
 def test_axis_matrix_and_flip():
+    """Against ``_axis_matrix`` as the JAX package runs it, inside a jitted
+    warp (XLA fuses ``o + d*s`` into one multiply-add): bit for bit."""
     rng = np.random.default_rng(2)
     o = rng.uniform(-3, 40, 6).astype(np.float32)
     s = rng.uniform(-1.5, 1.5, 6).astype(np.float32)
     valid = rng.integers(20, 64, 6).astype(np.float32)
-    rw, rm = j_axis(jnp.asarray(o), jnp.asarray(s), 64, 49, jnp.asarray(valid))
+    rw, rm = jax.jit(j_axis, static_argnums=(2, 3))(jnp.asarray(o), jnp.asarray(s), 64, 49,
+                                                     jnp.asarray(valid))
     gw, gm = _axis_matrix(torch.from_numpy(o), torch.from_numpy(s), 64, 49,
                           torch.from_numpy(valid))
-    np.testing.assert_allclose(gw.numpy(), np.asarray(rw), atol=1e-6)
-    np.testing.assert_allclose(gm.numpy(), np.asarray(rm), atol=1e-6)
+    np.testing.assert_array_equal(gw.numpy(), np.asarray(rw))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(rm))
 
 
 def test_gather_warp_fills_255_against_valid_extent():
