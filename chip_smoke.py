@@ -16,7 +16,13 @@ Phases, one line each as they finish (a cut run shows where it stopped):
    the main path's shape: device time per launch from a CUDA graph of 100
    launches, host time per wrapper call, beside its memory bound; and the
    same, bit-exact first, at the ONNX path's shape (``ONNX_SHAPE``: float32
-   probabilities at full resolution, pool 4);
+   probabilities at full resolution, pool 4); the block-edge cases
+   (``EDGE_SHAPES``, a pixel at each edge of every staged tile) in every
+   mode, pool 1/2/4 x bf16/f32 x logits on/off x dilate on/off and
+   mask-only, each bit-exact, one line per shape; the main mode at
+   B = 1, 4 and 16 with the fitted fixed cost per launch and byte rate,
+   beside a one-element fill timed alike (the cost of any launch);
+   each template instance's registers and spills read from ptxas;
 3. end to end: ``RettoSession(device="cuda").device_pipeline().run_many``
    with the mobile checkpoints over the fixture pages
    (``retto_tpu_torch/testdata/smoke_pages.npz``: gray pages, one tinted
@@ -170,6 +176,8 @@ from retto_tpu_torch.ops.ctc import ctc_greedy_decode  # noqa: E402
 from retto_tpu_torch.pipeline import device_pipeline  # noqa: E402
 from retto_tpu_torch.pipeline.device_pipeline import _is_aligned  # noqa: E402
 from retto_tpu_torch.serve import make_server  # noqa: E402
+from retto_tpu_torch.tools import epilogue_probe  # noqa: E402
+from retto_tpu_torch.tools.epilogue_probe import cuda_ms, device_ms, host_ms  # noqa: E402
 from retto_tpu_torch.train import (  # noqa: E402
     ctc_loss, db_loss, init_train_state, make_train_step, warmup_cosine_decay,
 )
@@ -196,6 +204,10 @@ MAIN_SHAPE = (4, 512, 384)  # det chunk 4 x stride-2 logits of a 1024x768 bucket
 # 1024x768 bucket, pooled by 4 (phase onnx)
 ONNX_SHAPE = (4, 1024, 768)
 LOGIT_THRESH = math.log(0.3 / 0.7)
+# the kernel's block-edge cases: maps of these shapes (B = 1, 5, 16; H = 64,
+# 1024; W = 128, 384, 1024) with one pixel above the threshold at each edge
+# of every staged tile (ops/db_pack.py::tile_edge_pixels), in every mode
+EDGE_SHAPES = ((1, 64, 128), (5, 1024, 384), (16, 64, 1024))
 # a line agrees with the JAX pipeline when its text is equal and its box
 # lies within BOX_TOL_PX; at least TEXT_MATCH_MIN of the lines must agree.
 # No box may lie beyond BOX_MAX_PX: one stride-2 mask pixel is ~2 page px,
@@ -305,63 +317,6 @@ def build() -> None:
             print(f"[build] {line.strip()}", flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean ms per call with CUDA events around ``iters`` eager calls: the
-    larger of the host's issue time and the device time."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, per_graph: int = 100, replays: int = 20) -> float:
-    """Device time per call: ``per_graph`` calls captured in one CUDA graph
-    (the ctypes launchers launch on the capturing stream), the graph
-    replayed between CUDA events, so no host work is in the number.  The
-    input stays in the 50 MB L2 between calls, as the det head's output is
-    when the pipeline's epilogue reads it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * per_graph)
-
-
-def host_ms(fn, iters: int = 2000) -> float:
-    """Host time per wrapper call: the Python loop's clock, with the device
-    far from full (each call's kernel takes less time than its issue)."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    ms = (time.perf_counter() - t) / iters * 1e3
-    torch.cuda.synchronize()
-    return ms
-
-
 def _epilogue_cases(gen, dev):
     """(name, pred, thresh, dilate, pool, logits): the main path's shape
     first, then the dtypes, pools, modes and halo cases."""
@@ -388,7 +343,28 @@ def _epilogue_cases(gen, dev):
     step = torch.randint(-1, 2, (2, 64, 128), generator=gen, device=dev)
     atb = (tb.float() + step * 0.0078125 * tb.abs().float()).to(torch.bfloat16)
     cases.append(("at_threshold_bf16", atb, LOGIT_THRESH, True, 2, True))
+    for shape in EDGE_SHAPES:
+        for logits in (True, False):
+            edge, th = _edge_map(gen, dev, shape, logits)
+            for x in (edge.to(torch.bfloat16), edge):
+                for dil in (True, False):
+                    for pool in (1, 2, 4):
+                        name = (f"edge_{'x'.join(map(str, shape))}_{str(x.dtype)[6:]}_"
+                                f"{'logits' if logits else 'probs'}_pool{pool}"
+                                f"{'' if dil else '_no_dilate'}")
+                        cases.append((name, x, th, dil, pool, logits))
     return main, cases
+
+
+def _edge_map(gen, dev, shape, logits: bool):
+    """(f32 map, thresh): a background below the threshold (logits in
+    [-8, -1.2], or probabilities in [0, 0.28]) with one pixel above it at
+    each edge of every tile the kernel stages."""
+    u = torch.rand(shape, generator=gen, device=dev)
+    x = -8.0 + 6.8 * u if logits else 0.28 * u
+    x[tuple(torch.from_numpy(i).to(dev) for i in db_pack.tile_edge_pixels(shape))] = (
+        2.0 if logits else 0.9)
+    return x, (LOGIT_THRESH if logits else 0.3)
 
 
 def _mask_cases(gen, dev, main):
@@ -410,6 +386,14 @@ def _mask_cases(gen, dev, main):
     atb = torch.where(torch.rand((2, 64, 128), generator=gen, device=dev) > 0.5,
                       tb.to(dev), torch.full((), -5.0, dtype=torch.bfloat16, device=dev))
     cases.append(("at_threshold_bf16", atb, LOGIT_THRESH, True))
+    for shape in EDGE_SHAPES:
+        for logits in (True, False):
+            edge, th = _edge_map(gen, dev, shape, logits)
+            for x in (edge.to(torch.bfloat16), edge):
+                for dil in (True, False):
+                    cases.append((f"edge_{'x'.join(map(str, shape))}_{str(x.dtype)[6:]}_"
+                                  f"{'logits' if logits else 'probs'}"
+                                  f"{'' if dil else '_no_dilate'}", x, th, dil))
     return cases
 
 
@@ -421,6 +405,7 @@ def kernel_phase() -> dict:
     dev = "cuda"
     main, cases = _epilogue_cases(gen, dev)
     max_err = 0
+    edges = {}  # edge cases per shape: [cases, mask ones]; one line per shape
     for name, x, th, dil, pool, lg in cases:
         mask, prob = db_pack.db_epilogue(x, th, dil, pool, lg)
         torch.cuda.synchronize()
@@ -428,9 +413,14 @@ def kernel_phase() -> dict:
         exact = torch.equal(mask, ref_mask) and torch.equal(prob, ref_prob)
         max_err = max(max_err, int((mask.int() - ref_mask.int()).abs().max()),
                       int((prob.int() - ref_prob.int()).abs().max()))
-        say("kernel", fn="db_epilogue", case=name, shape=tuple(x.shape),
-            dtype=str(x.dtype).split(".")[-1], pool=pool, logits=lg, exact=exact,
-            mask_ones=int(mask.ne(0).sum()), prob_sum=int(prob.sum()))
+        if name.startswith("edge_"):
+            tally = edges.setdefault(("db_epilogue", tuple(x.shape)), [0, 0])
+            tally[0] += 1
+            tally[1] += int(mask.ne(0).sum())
+        else:
+            say("kernel", fn="db_epilogue", case=name, shape=tuple(x.shape),
+                dtype=str(x.dtype).split(".")[-1], pool=pool, logits=lg, exact=exact,
+                mask_ones=int(mask.ne(0).sum()), prob_sum=int(prob.sum()))
         if not exact:
             fail(f"db_epilogue differs from its plain version on {name}: mask "
                  f"{int(mask.ne(ref_mask).sum())}, prob {int(prob.ne(ref_prob).sum())} bytes")
@@ -438,10 +428,19 @@ def kernel_phase() -> dict:
         got = db_pack.binarize_dilate_pack_rows_batch(x, th, dil)
         torch.cuda.synchronize()
         exact = torch.equal(got, db_pack.binarize_dilate_pack_rows_batch_plain(x, th, dil))
-        say("kernel", fn="binarize_dilate_pack_rows_batch", case=name, shape=tuple(x.shape),
-            exact=exact, ones=int(got.ne(0).sum()))
+        if name.startswith("edge_"):
+            tally = edges.setdefault(("binarize_dilate_pack_rows_batch", tuple(x.shape)),
+                                     [0, 0])
+            tally[0] += 1
+            tally[1] += int(got.ne(0).sum())
+        else:
+            say("kernel", fn="binarize_dilate_pack_rows_batch", case=name,
+                shape=tuple(x.shape), exact=exact, ones=int(got.ne(0).sum()))
         if not exact:
             fail(f"the mask-only kernel differs from its plain version on {name}")
+    for (fn, shape), (n, ones) in edges.items():
+        say("kernel", fn=fn, case="block_edges", shape=shape, modes=n, exact=True,
+            mask_ones=ones)
     # the one-map entry point (TPU _kernel) is the B = 1 case
     one = db_pack.binarize_dilate_pack_rows(main[0], LOGIT_THRESH, True)
     if not torch.equal(one, db_pack.binarize_dilate_pack_rows_batch_plain(
@@ -507,6 +506,24 @@ def kernel_phase() -> dict:
     say("kernel", fn="binarize_dilate_pack_rows", timed_shape=tuple(page.shape),
         device_ms=f"{ms1:.6f}", host_ms=f"{host1:.6f}", plain_ms=f"{plain1:.6f}",
         bound_ms=f"{bytes1 / HBM_BYTES_PER_S * 1e3:.6f}", bytes=bytes1)
+    out["one_map_ms"] = ms1
+    # the main mode at B = 1, 4, 16: the fixed cost per launch and the rate
+    # at which the kernel moves bytes, from a least-squares line
+    sweep = epilogue_probe.batch_sweep(db_pack, gen)
+    for p in sweep["points"]:
+        say("kernel", fn="db_epilogue", sweep_batch=p["batch"], bytes=p["bytes"],
+            device_ms=f"{p['ms']:.6f}", bound_ms=f"{p['bound_ms']:.6f}")
+    say("kernel", fn="db_epilogue", fit_fixed_ms=f"{sweep['fixed_ms']:.6f}",
+        fit_tb_per_s=f"{sweep['bytes_per_s'] / 1e12:.4f}",
+        of_hbm=f"{sweep['of_hbm']:.4f}", launch_floor_ms=f"{sweep['launch_floor_ms']:.6f}")
+    out["sweep"] = sweep
+    # registers and spills of each template instance (bf16/f32 x pool 1/2/4)
+    ptxas = epilogue_probe.ptxas_resources(kernels.build_log())
+    if len(ptxas) != 6 or any("registers" not in r for r in ptxas.values()):
+        fail(f"the ptxas log does not give all 6 kernel instances: {ptxas}")
+    for name, r in sorted(ptxas.items()):
+        say("kernel", instance=name, **r)
+    out["ptxas"] = ptxas
     return out
 
 
@@ -1830,6 +1847,14 @@ def main() -> None:
         "onnx_host_ms": k["onnx_host_ms"],
         "onnx_plain_ms": k["onnx_plain_ms"],
         "onnx_bound_ms": k["onnx_bound_ms"],
+        "one_map_ms": k["one_map_ms"],
+        "sweep_ms": {p["batch"]: p["ms"] for p in k["sweep"]["points"]},
+        "fit_fixed_ms": k["sweep"]["fixed_ms"],
+        "fit_bytes_per_s": k["sweep"]["bytes_per_s"],
+        "launch_floor_ms": k["sweep"]["launch_floor_ms"],
+        "registers": {n: r["registers"] for n, r in sorted(k["ptxas"].items())},
+        "spill_bytes": {n: r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                        for n, r in sorted(k["ptxas"].items())},
     }]}
     say("done", total_s=f"{time.perf_counter() - t0:.1f}")
     print("[train] steps_per_s " + json.dumps({k: round(v["steps_per_s_median"], 4)

@@ -31,11 +31,21 @@ __all__ = [
     "db_epilogue",
     "db_epilogue_plain",
     "pooled_prob_plain",
+    "tile_edge_pixels",
     "unpack_rows",
+    "KERNEL_TILE",
 ]
 
 _TILE_H = 64  # the det bucket grid guarantees H % 64 == 0 and W % 128 == 0
 _KERNEL_POOLS = (1, 2, 4)  # stride-4, stride-2 and stride-1 det maps
+# rows x columns of the map that one block of csrc/db_pack.cu stages
+KERNEL_TILE = (16, 128)
+# (row, column) in a tile of one test pixel at each of its edges: the last
+# row (the tile below reads it as its halo row), the last column (the tile
+# to the right reads it as its left neighbour), the corner of the two, the
+# first column (not image column 0 beyond the first tile), the first row,
+# and the last row of the first packed group
+_EDGE_OFFSETS = ((15, 60), (5, 127), (15, 127), (9, 0), (0, 90), (7, 30))
 
 
 def binarize_dilate_pack_rows_batch_plain(
@@ -167,6 +177,18 @@ def binarize_dilate_pack_rows(
     """One map [..., H, W] -> u8 [H/8, W]: the batched kernel at B = 1."""
     pred2d = pred.reshape(pred.shape[-2:])
     return binarize_dilate_pack_rows_batch(pred2d[None].contiguous(), thresh, dilate)[0]
+
+
+def tile_edge_pixels(shape: tuple[int, int, int]) -> tuple[np.ndarray, ...]:
+    """(image, row, column) index arrays of one pixel at each edge of every
+    ``KERNEL_TILE`` tile of a [B, H, W] map (``_EDGE_OFFSETS``).  No two
+    lie within 2 pixels of each other, so each one's dilation shows alone."""
+    b, h, w = shape
+    th, tw = KERNEL_TILE
+    bi, ty, tx, k = np.meshgrid(np.arange(b), np.arange(h // th), np.arange(w // tw),
+                                np.arange(len(_EDGE_OFFSETS)), indexing="ij")
+    off = np.asarray(_EDGE_OFFSETS)
+    return bi.ravel(), (ty * th + off[k, 0]).ravel(), (tx * tw + off[k, 1]).ravel()
 
 
 def unpack_rows(packed: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -26,9 +26,20 @@ from retto_tpu_torch.ops.db_pack import (
     db_epilogue,
     db_epilogue_plain,
     pooled_prob_plain,
+    tile_edge_pixels,
 )
 
 LOGIT_T = math.log(0.3 / 0.7)
+# Start torch's intra-op threads before any JAX computation in this
+# process: threads that torch starts after one (a Pallas kernel in
+# interpret mode, a jit) have computed one chunk of the first elementwise op
+# 1 ulp off (~1 run in 3), which moves a few pooled bytes by 1.  Nothing of
+# the kind happens without JAX in the process, as on the card.
+torch.exp(torch.ones(1 << 16))
+# maps with one pixel above the threshold at each edge of every tile the
+# CUDA kernel stages (``tile_edge_pixels``): B = 1, 5, 2; H = 64, 1024;
+# W = 128, 384, 1024
+EDGE_SHAPES = ((1, 64, 128), (5, 64, 384), (1, 1024, 1024))
 
 
 @partial(jax.jit, static_argnames=("pool", "logits"))
@@ -86,11 +97,46 @@ def test_main_shape_seeded_logits():
     assert int((old != ref_prob).sum()) > 10_000
 
 
-@pytest.mark.parametrize("pool", [1, 2, 4])
-def test_halo_cases(pool):
+def _edge_map(shape, logits: bool, seed: int = 0) -> np.ndarray:
+    """A background below the threshold (logits in [-8, -1.2], or
+    probabilities in [0, 0.28]) with one pixel above it (2.0, or 0.9) at
+    each edge of every tile the CUDA kernel stages."""
+    u = np.random.default_rng(seed).uniform(size=shape)
+    x = -8.0 + 6.8 * u if logits else 0.28 * u
+    x[tile_edge_pixels(shape)] = 2.0 if logits else 0.9
+    return x.astype(np.float32)
+
+
+_HALO_PARAMS = [pytest.param(pool, None, id=str(pool)) for pool in (1, 2, 4)] + [
+    pytest.param(pool, shape, id=f"{pool}-edges-{'x'.join(map(str, shape))}")
+    for shape in EDGE_SHAPES for pool in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("pool, edge_shape", _HALO_PARAMS)
+def test_halo_cases(pool, edge_shape):
     """Row 8r-1 (the halo row of the next packed row), column 0, the last
     row of a 64-row tile, the bottom-right corner, and a column a lane's
-    first column takes its left neighbour from."""
+    first column takes its left neighbour from.  With ``edge_shape``: a
+    pixel at each edge of every tile the CUDA kernel stages, in every mode
+    (bf16/f32, logits on/off, dilate on/off), against the Pallas kernel in
+    interpret mode and the JAX pipeline's prob map."""
+    if edge_shape is not None:
+        for logits in (True, False):
+            x = _edge_map(edge_shape, logits)
+            thresh = LOGIT_T if logits else 0.3
+            for bf16 in (True, False):
+                for dilate in (True, False):
+                    (ref_mask, ref_prob), (mask, prob) = _both(x, thresh, dilate, pool,
+                                                               logits, bf16)
+                    np.testing.assert_array_equal(mask, ref_mask)
+                    np.testing.assert_array_equal(prob, ref_prob)
+                    # each pixel sets its own bit and, dilated, those below
+                    # and to the right of it that lie in the image
+                    _, ys, xs = tile_edge_pixels(edge_shape)
+                    _, h, w = edge_shape
+                    want = ((1 + (ys + 1 < h)) * (1 + (xs + 1 < w))).sum() if dilate else len(ys)
+                    assert np.unpackbits(mask, axis=1).sum() == want
+        return
     x = np.full((2, 128, 256), -6.0, np.float32)
     x[0, 63, 100] = 2.0
     x[1, 7, 0] = 2.0
@@ -143,6 +189,8 @@ def test_wrapper_routes_cpu_tensors_to_plain_and_checks_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool", [1, 2, 4])
 def test_cuda_kernel_equals_plain(pool):
+    """The main shape, then the block-edge maps of ``chip_smoke.py``'s
+    shapes (B = 1, 5, 16; H = 64, 1024; W = 128, 384, 1024) in every mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (run chip_smoke.py on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -153,3 +201,14 @@ def test_cuda_kernel_equals_plain(pool):
     assert db_epilogue.launches == before + 1
     ref = db_epilogue_plain(x, LOGIT_T, True, pool, True)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for shape in ((1, 64, 128), (5, 1024, 384), (16, 64, 1024)):
+        for logits in (True, False):
+            edge = torch.from_numpy(_edge_map(shape, logits)).cuda()
+            thresh = LOGIT_T if logits else 0.3
+            for x in (edge.to(torch.bfloat16), edge):
+                for dilate in (True, False):
+                    got = db_epilogue(x, thresh, dilate, pool, logits)
+                    torch.cuda.synchronize()
+                    ref = db_epilogue_plain(x, thresh, dilate, pool, logits)
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                        shape, x.dtype, logits, dilate)

@@ -24,10 +24,23 @@ from retto_tpu_torch.ops.db_pack import (
     binarize_dilate_pack_rows,
     binarize_dilate_pack_rows_batch,
     binarize_dilate_pack_rows_batch_plain,
+    tile_edge_pixels,
     unpack_rows,
 )
 
 LOGIT_T = math.log(0.3 / 0.7)
+# maps with one pixel above the threshold at each edge of every tile the
+# CUDA kernel stages (``tile_edge_pixels``): B = 1, 5, 2; H = 64, 1024;
+# W = 128, 384, 1024
+EDGE_SHAPES = ((1, 64, 128), (5, 64, 384), (1, 1024, 1024))
+
+
+def _edge_map(shape, seed: int = 0) -> np.ndarray:
+    """Probabilities in [0, 0.28] with one pixel at 0.9 at each edge of
+    every tile the CUDA kernel stages."""
+    x = 0.28 * np.random.default_rng(seed).uniform(size=shape)
+    x[tile_edge_pixels(shape)] = 0.9
+    return x.astype(np.float32)
 
 
 def _both(x: np.ndarray, thresh: float, dilate: bool, bf16: bool = False):
@@ -70,6 +83,22 @@ def test_tile_boundary_halo():
     assert not m[62, 99] and m.sum() == 4
 
 
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tile_boundary_halo_block_edges(shape, bf16):
+    """A pixel at each edge of every tile the CUDA kernel stages (its last
+    row and column, their corner, its first row and column, the last row of
+    its first packed group), dilated and not, against the Pallas kernel."""
+    x = _edge_map(shape)
+    for dilate in (True, False):
+        ref, got = _both(x, 0.3, dilate, bf16)
+        np.testing.assert_array_equal(got, ref)
+        _, ys, xs = tile_edge_pixels(shape)
+        _, h, w = shape
+        want = ((1 + (ys + 1 < h)) * (1 + (xs + 1 < w))).sum() if dilate else len(ys)
+        assert np.unpackbits(got, axis=1).sum() == want
+
+
 @pytest.mark.parametrize("dilate", [True, False])
 def test_bf16_at_the_logit_threshold(dilate):
     rng = np.random.default_rng(3)
@@ -103,6 +132,9 @@ def test_wrapper_routes_cpu_tensors_to_plain_and_checks_inputs():
 
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain():
+    """The main shape, then the block-edge maps of ``chip_smoke.py``'s
+    shapes (B = 1, 5, 16; H = 64, 1024; W = 128, 384, 1024), bf16 and f32,
+    dilated and not."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (run chip_smoke.py on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -112,3 +144,11 @@ def test_cuda_kernel_equals_plain():
     torch.cuda.synchronize()
     assert binarize_dilate_pack_rows_batch.launches == before + 1
     assert torch.equal(got, binarize_dilate_pack_rows_batch_plain(x, LOGIT_T, True))
+    for shape in ((1, 64, 128), (5, 1024, 384), (16, 64, 1024)):
+        edge = torch.from_numpy(_edge_map(shape)).cuda()
+        for x in (edge.to(torch.bfloat16), edge):
+            for dilate in (True, False):
+                got = binarize_dilate_pack_rows_batch(x, 0.3, dilate)
+                torch.cuda.synchronize()
+                assert torch.equal(got, binarize_dilate_pack_rows_batch_plain(x, 0.3, dilate)), (
+                    shape, x.dtype, dilate)
