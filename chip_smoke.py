@@ -801,7 +801,7 @@ def stream_phase(fx) -> None:
         say("stream", pages=len(pages), sizes=STREAM_SIZES, warm_s=f"{time.perf_counter() - t:.2f}",
             compile_count=n_graphs, capture_s=f"{capture_s:.2f}")
         dp.metrics = type(dp.metrics)()
-        pads0 = dp.pad_concats
+        pads0 = dp.metrics.pad_concats
         compiles0 = dp.compile_count()
         db_pack.db_epilogue.launches = 0
         t = time.perf_counter()
@@ -813,12 +813,12 @@ def stream_phase(fx) -> None:
         new_captures = dp.compile_count() - compiles0
         say("stream", images=sum(len(b) for b in got), images_per_s=f"{sum(len(b) for b in got) / dt:.3f}",
             rec_batch_occupancy=occ.get("rec_batch"), det_batch_occupancy=occ.get("det_batch"),
-            pad_concats=dp.pad_concats - pads0, db_epilogue_launches=launches,
+            pad_concats=dp.metrics.pad_concats - pads0, db_epilogue_launches=launches,
             compile_count=dp.compile_count(), captures_in_timed_region=new_captures)
         print("[stream] bucket_occupancy " + json.dumps(occ), flush=True)
         if new_captures:
             fail("the timed stream pass captured a new graph")
-        if dp.pad_concats == pads0:
+        if dp.metrics.pad_concats == pads0:
             fail("the mixed-size stream never took the cross-shape pad + concat")
         if launches <= 0:
             fail("the stream never launched the db_epilogue kernel")

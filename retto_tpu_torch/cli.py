@@ -89,7 +89,6 @@ def _build_session(args):
 
 def cmd_ocr(args) -> int:
     from .errors import RettoError
-    from .utils import StageTimers
 
     root = Path(args.images)
     if root.is_file():
@@ -108,7 +107,6 @@ def cmd_ocr(args) -> int:
     with session:
         runner = session.device_pipeline() if args.device_pipeline else session
         out_f = open(args.json_out, "w", encoding="utf-8") if args.json_out else None
-        timers = StageTimers()
         n_ok = 0
         t0 = time.perf_counter()
 
@@ -126,12 +124,11 @@ def cmd_ocr(args) -> int:
                 print(f"{f.name}: " + " | ".join(t.text for t in res.rec_result))
 
         if args.device_pipeline:
-            n_ok = _ocr_stream(runner, files, max(1, args.batch), timers, emit)
+            n_ok = _ocr_stream(runner, files, max(1, args.batch), emit)
         else:
             for f in files:
                 try:
-                    with timers.time("image"):
-                        res = runner.run(f.read_bytes())
+                    res = runner.run(f.read_bytes())
                     n_ok += 1
                 except RettoError as e:
                     print(f"{f}: ERROR {e}", file=sys.stderr)
@@ -149,7 +146,7 @@ def cmd_ocr(args) -> int:
     return 0
 
 
-def _ocr_stream(runner, files: list[Path], bs: int, timers, emit) -> int:
+def _ocr_stream(runner, files: list[Path], bs: int, emit) -> int:
     """Stream file batches through the fused pipeline (cli.py:115-176):
     batch i+1's decode and uploads overlap batch i's postprocess tail.  A
     bad image fills its slot with its error; a batch that fails as a whole
@@ -160,17 +157,16 @@ def _ocr_stream(runner, files: list[Path], bs: int, timers, emit) -> int:
     n_ok = 0
     emitted: set[Path] = set()
     try:
-        with timers.time("stream"):
-            for group, results in zip(
-                groups, runner.stream([[f.read_bytes() for f in g] for g in groups])
-            ):
-                for f, res in zip(group, results):
-                    emitted.add(f)
-                    if isinstance(res, RettoError):
-                        print(f"{f}: ERROR {res}", file=sys.stderr)
-                        continue
-                    emit(f, res)
-                    n_ok += 1
+        for group, results in zip(
+            groups, runner.stream([[f.read_bytes() for f in g] for g in groups])
+        ):
+            for f, res in zip(group, results):
+                emitted.add(f)
+                if isinstance(res, RettoError):
+                    print(f"{f}: ERROR {res}", file=sys.stderr)
+                    continue
+                emit(f, res)
+                n_ok += 1
     except RettoError:
         for f in (f for g in groups for f in g if f not in emitted):
             try:

@@ -23,6 +23,22 @@ accumulate across chunks and, in ``stream``, across batches, keyed by
 channel count: chunks of other upload shapes meet in a device edge pad +
 concat (``_pad_concat``).
 
+Spans (``utils.timing.StageTimers``, one per call; ``retto.<name> sid=...``
+ranges on a profiler's timeline).  The calling thread's follow each other
+and together cover the call: ``decode``, then per chunk ``upload_wait``,
+``mask_fetch``, ``contours`` and ``score``, per accumulator flush
+``lock_wait``, ``flush`` (pad + concat, the crops' buckets) and one
+``clsrec_dispatch`` a bucket, then ``clsrec_wait`` and ``texts`` per
+handle and ``assemble``.  The upload thread's ``upload`` (twice a chunk:
+the stacking, then the dispatch under the lock, its wait excluded) and
+``lock_wait``, and a fetch thread's ``fetch`` come back with their results
+and the calling thread merges them.  On a card, a pair of
+CUDA timing events around each det and cls + rec replay gives
+``det_device`` and ``clsrec_device``, read once the copies recorded behind
+them have completed.  ``last_stats`` is the call's counters beside
+``t_<span>`` seconds and ``n_<span>`` counts; ``t_clsrec_fetch`` is
+``t_clsrec_wait + t_texts``.
+
 The det model is the port's ``DetModel`` (NHWC in its compute dtype,
 stride-2 logits, pool 2) or any other module with the engine contract, an
 ``OnnxEngine`` graph among them: it takes NCHW float32 after the resize
@@ -73,7 +89,9 @@ import logging
 import math
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -103,6 +121,7 @@ from ..results import (
     StageResult,
 )
 from ..utils.metrics import PipelineMetrics
+from ..utils.timing import StageTimers
 from ..parallel.mesh import mesh_devices, replicate_module
 from .graphs import GraphCache, on_device
 from .stages import _bucket_up, _next_bucket, det_input_dims
@@ -113,6 +132,10 @@ logger = logging.getLogger("retto_tpu_torch.device_pipeline")
 
 
 _INV255 = float(np.float32(1.0 / 255.0))
+
+# host seconds in every call's last_stats, 0.0 where the span did not run
+_STAGE_KEYS = ("t_decode", "t_upload_wait", "t_mask_fetch", "t_contours", "t_score",
+               "t_clsrec_fetch")
 
 
 def _bilinear_matrix(
@@ -203,7 +226,7 @@ class _Img:
 class _Chunk:
     key: tuple  # (upload Hp, Wp, det dh, dw, plane format)
     idxs: list[int]
-    upload_fut: Any = None  # -> (fetch future, rgb, valids_src, bytes_up)
+    upload_fut: Any = None  # -> (fetch future, rgb, valids_src, bytes_up, timers)
     rgb: Any = None  # the chunk's image tensor on each 'data' device
     valids_src: Any = None  # and its valid extents, likewise
 
@@ -292,6 +315,8 @@ class _Replica:
         self.det_graphs = GraphCache(device)
         self.clsrec_graphs = GraphCache(device)
         self.staging = _Staging() if device.type == "cuda" else None
+        # (start, end) timing events, handed back once read (_host)
+        self.marks: deque = deque()
 
 
 def _pad_concat(th: int, tw: int, xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -375,7 +400,6 @@ class DevicePipeline:
         self._upload_pool = ThreadPoolExecutor(max_workers=1)
         self._fetch_pool = ThreadPoolExecutor(max_workers=2)
         self._sid = 0  # monotone _prepare state counter (stream keys)
-        self.pad_concats = 0  # accumulator flushes that padded mixed shapes
 
     # ------------------------------------------------------------------ #
     def _det_fwd(self, planes, valid_src, valid_det, dh: int, dw: int, fmt: str,
@@ -746,61 +770,98 @@ class DevicePipeline:
         return -(-_next_bucket(n, buckets) // ds) * ds
 
     @staticmethod
-    def _to_host(tensors: Sequence[torch.Tensor]) -> tuple[list, Any]:
+    def _to_host(tensors: Sequence[torch.Tensor], marks=None) -> tuple[list, Any, Any]:
         """Enqueue copies of ``tensors`` (all on one device) to the host
         right behind the work that wrote them, on that device's current
         stream (pinned buffers, an event behind the copies): the graphs'
         static outputs are overwritten by the key's next replay.  ``_host``
-        completes them."""
+        completes them, and reads ``marks`` (``_run_graph``), recorded
+        before the copies, once they have."""
         dev = tensors[0].device
         if dev.type != "cuda":
-            return [t.clone() for t in tensors], None
+            return [t.clone() for t in tensors], None, marks
         hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
         for h, t in zip(hosts, tensors):
             h.copy_(t, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(dev))
-        return hosts, ev
+        return hosts, ev, marks
 
     @staticmethod
-    def _host(pendings: list[tuple[list, Any]]) -> list[np.ndarray]:
-        """Complete each shard's copies (``_to_host``) and join the shards
-        in row order."""
+    def _host(pendings: list[tuple[list, Any, Any]], tm: StageTimers, wait: str,
+              device: str, **ids) -> list[np.ndarray]:
+        """Complete each shard's copies (``_to_host``) in the span ``wait``,
+        add each shard's device time between its marks to ``device``, and
+        join the shards in row order."""
         parts = []
-        for hosts, ev in pendings:
-            if ev is not None:
-                ev.synchronize()
+        for hosts, ev, marks in pendings:
+            with tm.time(wait, **ids):
+                if ev is not None:
+                    ev.synchronize()
+            if marks is not None:
+                start, end, pool = marks
+                tm.add(device, start.elapsed_time(end) / 1e3)
+                pool.append((start, end))
             parts.append([h.numpy() for h in hosts])
         if len(parts) == 1:
             return parts[0]
         return [np.concatenate(xs) for xs in zip(*parts)]
 
+    @contextmanager
+    def _locked(self, tm: StageTimers, **ids):
+        """Hold the dispatch lock; the wait for it is the span
+        ``lock_wait``."""
+        with tm.time("lock_wait", **ids):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
+    @staticmethod
+    def _run_graph(rep: _Replica, cache: GraphCache, key, fn, *args):
+        """``cache.run(key, fn, *args)`` and the timing marks around it:
+        on a card, a pair of CUDA events from ``rep``'s pool when the key
+        replays (a capture and its warm-up are never timed), else None.
+        The caller holds the lock, on ``rep``'s device."""
+        if rep.staging is None or key not in cache:
+            return cache.run(key, fn, *args), None
+        stream = torch.cuda.current_stream(rep.device)
+        start, end = rep.marks.pop() if rep.marks else (
+            torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        start.record(stream)
+        out = cache.run(key, fn, *args)
+        end.record(stream)
+        return out, (start, end, rep.marks)
+
     @torch.inference_mode()
     def _upload_and_det(self, chunk: _Chunk, imgs: list[_Img],
-                        pixels: list[tuple[np.ndarray, ...]], nb: int):
+                        pixels: list[tuple[np.ndarray, ...]], nb: int, sid: int, ci: int):
         """Runs on the upload thread: stack the pre-padded planes; per
         'data' shard of the rows, upload, dispatch the det forward on the
         shard's device and enqueue its det maps' copies to the host; gather
         the image tensor whole onto every device; hand the copies'
         completion to a fetch thread (device_pipeline.py:791-840).
-        Counters are returned, never added into the shared stats dict from
-        this thread."""
+        Counters and this thread's spans (``upload``, ``lock_wait``) are
+        returned, never added into the shared stats from this thread."""
         hp, wp, dh, dw, fmt = chunk.key
-        planes_np = []
-        for p in range(len(pixels[0])):
-            first = pixels[0][p]
-            buf = np.zeros((nb, *first.shape), first.dtype)
-            for k, px in enumerate(pixels):
-                buf[k] = px[p]
-            planes_np.append(buf)
-        valids_src = np.ones((nb, 2), np.int32)
-        valids_det = np.ones((nb, 2), np.int32)
-        for k, im in enumerate(imgs):
-            valids_src[k] = (im.ah, im.aw)
-            valids_det[k] = (im.rh, im.rw)
+        tm = StageTimers()
+        with tm.time("upload", sid=sid, chunk=ci):
+            planes_np = []
+            for p in range(len(pixels[0])):
+                first = pixels[0][p]
+                buf = np.zeros((nb, *first.shape), first.dtype)
+                for k, px in enumerate(pixels):
+                    buf[k] = px[p]
+                planes_np.append(buf)
+            valids_src = np.ones((nb, 2), np.int32)
+            valids_det = np.ones((nb, 2), np.int32)
+            for k, im in enumerate(imgs):
+                valids_src[k] = (im.ah, im.aw)
+                valids_det[k] = (im.rh, im.rw)
         per = nb // self._data_size
         pending, rgbs = [], []
-        with self._lock:
+        with self._locked(tm, sid=sid, chunk=ci), tm.time("upload", sid=sid, chunk=ci):
             for k, rep in enumerate(self._shards):
                 rows = slice(k * per, (k + 1) * per)
                 with on_device(rep.device):
@@ -808,22 +869,30 @@ class DevicePipeline:
                     vs = self._put(valids_src[rows], rep)
                     vd = self._put(valids_det[rows], rep)
                     key = (tuple(tuple(p.shape) for p in planes), dh, dw, fmt)
-                    packed, prob_small, rgb = rep.det_graphs.run(
-                        key, lambda *t, rep=rep: self._det_fwd(t[:-2], t[-2], t[-1], dh, dw,
-                                                               fmt, rep),
+                    (packed, prob_small, rgb), marks = self._run_graph(
+                        rep, rep.det_graphs, key,
+                        lambda *t, rep=rep: self._det_fwd(t[:-2], t[-2], t[-1], dh, dw,
+                                                          fmt, rep),
                         *planes, vs, vd)
                     # the graph's outputs belong to the next replay of this
                     # key (the next shard or chunk): the image tensor waits
                     # in the crop accumulator, so it is cloned
                     rgbs.append(rgb.clone())
-                    pending.append(self._to_host((packed, prob_small)))
+                    pending.append(self._to_host((packed, prob_small), marks))
             # crop warps index any image of the chunk: every device gets the
             # whole image tensor and the valid extents (device_pipeline.py:825-828)
             rgb = {r.device: torch.cat([x.to(r.device) for x in rgbs]) if len(rgbs) > 1
                    else rgbs[0] for r in self._replicas}
             vs = {r.device: self._put(valids_src, r) for r in self._replicas}
-        fetch_fut = self._fetch_pool.submit(self._host, pending)
-        return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np)
+        fetch_fut = self._fetch_pool.submit(self._fetch_det, pending, sid, ci)
+        return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np), tm
+
+    def _fetch_det(self, pending: list, sid: int, ci: int):
+        """Runs on a fetch thread: complete a chunk's det maps (the span
+        ``fetch``, and ``det_device`` on a card); returns them and the
+        spans."""
+        tm = StageTimers()
+        return self._host(pending, tm, "fetch", "det_device", sid=sid, chunk=ci), tm
 
     def _prepare(self, inputs: Sequence[bytes | np.ndarray]) -> dict:
         """Decode every input and hand each (upload shape, det bucket,
@@ -834,11 +903,9 @@ class DevicePipeline:
         self._sid += 1
         stats = {
             "images": len(inputs), "crops": 0, "chunks": 0,
-            "bytes_up": 0, "bytes_down": 0, "dispatches": 0,
-            "t_decode": 0.0, "t_mask_fetch": 0.0, "t_contours": 0.0,
-            "t_score": 0.0, "t_clsrec_fetch": 0.0, "t_total": 0.0,
-            "t_upload_wait": 0.0,
+            "bytes_up": 0, "bytes_down": 0, "dispatches": 0, "pad_concats": 0,
         }
+        tm = StageTimers()
         t0 = time.perf_counter()
         bk = cfg.buckets
         imgs: list[_Img | None] = []
@@ -855,35 +922,35 @@ class DevicePipeline:
             stats["dispatches"] += 1
             ch.upload_fut = self._upload_pool.submit(
                 self._upload_and_det, ch, [imgs[i] for i in idxs],
-                [pixels[i] for i in idxs], nb)
+                [pixels[i] for i in idxs], nb, sid, len(chunks))
             chunks.append(ch)
 
         errors: dict[int, RettoError] = {}
-        for data in inputs:
-            i = len(imgs)
-            try:
-                im, planes = self._decode_one(data)
-            except RettoError as e:
-                logger.warning("device_pipeline: image %d failed: %s", i, e)
-                errors[i] = e
-                imgs.append(None)
-                pixels.append(None)
-                continue
-            imgs.append(im)
-            pixels.append(planes)
-            hp = _bucket_up(im.ah, bk.upload_pad_to, 1 << 30)
-            wp = _bucket_up(im.aw, bk.upload_pad_to, 1 << 30)
-            dh = _bucket_up(im.rh, bk.det_pad_to, bk.det_max_side)
-            dw = _bucket_up(im.rw, bk.det_pad_to, bk.det_max_side)
-            key = (hp, wp, dh, dw, im.fmt)
-            pending.setdefault(key, []).append(i)
-            if len(pending[key]) >= bk.det_chunk:
-                flush(key, pending.pop(key))
-        for key, idxs in pending.items():
-            flush(key, idxs)
+        with tm.time("decode", sid=sid):
+            for data in inputs:
+                i = len(imgs)
+                try:
+                    im, planes = self._decode_one(data)
+                except RettoError as e:
+                    logger.warning("device_pipeline: image %d failed: %s", i, e)
+                    errors[i] = e
+                    imgs.append(None)
+                    pixels.append(None)
+                    continue
+                imgs.append(im)
+                pixels.append(planes)
+                hp = _bucket_up(im.ah, bk.upload_pad_to, 1 << 30)
+                wp = _bucket_up(im.aw, bk.upload_pad_to, 1 << 30)
+                dh = _bucket_up(im.rh, bk.det_pad_to, bk.det_max_side)
+                dw = _bucket_up(im.rw, bk.det_pad_to, bk.det_max_side)
+                key = (hp, wp, dh, dw, im.fmt)
+                pending.setdefault(key, []).append(i)
+                if len(pending[key]) >= bk.det_chunk:
+                    flush(key, pending.pop(key))
+            for key, idxs in pending.items():
+                flush(key, idxs)
         stats["chunks"] = len(chunks)
-        stats["t_decode"] = time.perf_counter() - t0
-        return {"imgs": imgs, "chunks": chunks, "stats": stats, "t0": t0,
+        return {"imgs": imgs, "chunks": chunks, "stats": stats, "timers": tm, "t0": t0,
                 "errors": errors, "sid": sid}
 
     def _finish(self, state: dict, stage_callback=None) -> list[OcrResult | RettoError]:
@@ -894,24 +961,34 @@ class DevicePipeline:
         self._finish_det(state, acc, handles, stage_callback)
         return self._assemble(state, acc, handles, {}, stage_callback)
 
-    def _flush_acc(self, acc: dict, key: tuple, handles: list) -> None:
+    def _flush_acc(self, acc: dict, key: tuple, handles: list, tm: StageTimers,
+                   sid: int) -> None:
+        """Dispatch an accumulator's crops: under the lock, the span
+        ``flush`` (the chunks' pad + concat, the crops' buckets), then one
+        ``clsrec_dispatch`` a bucket.  ``tm`` is the running call's."""
         a = acc.pop(key, None)
         if not a or not a["crops"]:
             return
-        with self._lock:
-            if len(a["chunks"]) == 1:
-                rgb, vs = a["chunks"][0]
-            else:
-                shapes = {tuple(c[0][self.device].shape[1:3]) for c in a["chunks"]}
-                th, tw = (max(x[i] for x in shapes) for i in (0, 1))
-                self.pad_concats += len(shapes) > 1
-                rgb, vs = {}, {}
-                for r in self._replicas:  # on every device alike
-                    with on_device(r.device):
-                        xs = [c[0][r.device] for c in a["chunks"]]
-                        rgb[r.device] = _pad_concat(th, tw, xs) if len(shapes) > 1 else torch.cat(xs)
-                        vs[r.device] = torch.cat([c[1][r.device] for c in a["chunks"]])
-            handles.extend(self._dispatch_clsrec(rgb, vs, a["crops"], a["stats"]))
+        with self._locked(tm, sid=sid):
+            with tm.time("flush", sid=sid):
+                if len(a["chunks"]) == 1:
+                    rgb, vs = a["chunks"][0]
+                else:
+                    shapes = {tuple(c[0][self.device].shape[1:3]) for c in a["chunks"]}
+                    th, tw = (max(x[i] for x in shapes) for i in (0, 1))
+                    a["stats"]["pad_concats"] += len(shapes) > 1
+                    rgb, vs = {}, {}
+                    for r in self._replicas:  # on every device alike
+                        with on_device(r.device):
+                            xs = [c[0][r.device] for c in a["chunks"]]
+                            rgb[r.device] = (_pad_concat(th, tw, xs) if len(shapes) > 1
+                                             else torch.cat(xs))
+                            vs[r.device] = torch.cat([c[1][r.device] for c in a["chunks"]])
+                base_of, buckets = self._clsrec_buckets(a["crops"])
+            for b, (bw, aligned, items) in enumerate(buckets):
+                with tm.time("clsrec_dispatch", sid=sid, bucket=b):
+                    handles.append((items, self._dispatch_clsrec(
+                        rgb, vs, base_of, bw, aligned, items, a["stats"])))
 
     @torch.inference_mode()
     def _finish_det(self, state: dict, acc: dict, handles: list,
@@ -921,76 +998,36 @@ class DevicePipeline:
         accumulate by channel count across chunks (and, in ``stream``,
         across batches: ``acc`` and ``handles`` are the caller's) and
         dispatch in buckets of up to 64 (device_pipeline.py:1020-1152)."""
-        cfg = self.cfg
         imgs: list[_Img] = state["imgs"]
         stats = state["stats"]
+        tm: StageTimers = state["timers"]
         sid = state["sid"]
-        s = self._det_stride
-        for ch in state["chunks"]:
-            t = time.perf_counter()
-            fetch_fut, ch.rgb, ch.valids_src, bytes_up = ch.upload_fut.result()
-            stats["t_upload_wait"] += time.perf_counter() - t
+        for ci, ch in enumerate(state["chunks"]):
+            with tm.time("upload_wait", sid=sid, chunk=ci):
+                fetch_fut, ch.rgb, ch.valids_src, bytes_up, up_tm = ch.upload_fut.result()
+            tm.merge(up_tm)
             stats["bytes_up"] += bytes_up
-            t = time.perf_counter()
-            packed_np, prob_np = fetch_fut.result()
-            stats["t_mask_fetch"] += time.perf_counter() - t
+            with tm.time("mask_fetch", sid=sid, chunk=ci):
+                (packed_np, prob_np), fetch_tm = fetch_fut.result()
+            tm.merge(fetch_tm)
             stats["bytes_down"] += int(packed_np.nbytes) + int(prob_np.nbytes)
-
-            t = time.perf_counter()
-            mh_full, mw_full = ch.key[2] // s, ch.key[3] // s
-            row_packed = packed_np.shape[1] != mh_full  # kernel layout
-            min_sside = max(1, cfg.det.min_mini_box_size // s)
-            from ..native import det_chunk_native
-
-            nb = len(ch.idxs)
-            outs = det_chunk_native(
-                packed_np[:nb], row_packed, prob_np[:nb],
-                [(imgs[i].rh // s, imgs[i].rw // s) for i in ch.idxs], s,
-                [(imgs[i].rh, imgs[i].rw) for i in ch.idxs],
-                [(imgs[i].ah, imgs[i].aw) for i in ch.idxs],
-                min_sside, cfg.det.max_candidates, cfg.det.box_thresh,
-                cfg.det.unclip_ratio, cfg.det.min_mini_box_size,
-            )
-            if outs is not None:
-                for i, (bx, sc) in zip(ch.idxs, outs):
-                    imgs[i].boxes, imgs[i].scores = bx, sc
-            else:  # no compiler: numpy fallback per image
-                import dataclasses
-
-                cfg_s = dataclasses.replace(cfg.det, min_mini_box_size=min_sside)
+            with tm.time("contours", sid=sid, chunk=ci):
+                self._contours(imgs, ch, packed_np, prob_np)
+            with tm.time("score", sid=sid, chunk=ci):
                 for i in ch.idxs:
                     im = imgs[i]
-                    if row_packed:
-                        mask = unpack_rows(packed_np[im.row], im.rh // s, im.rw // s)
-                    else:
-                        mask = unpack_mask(packed_np[im.row], mw_full)[
-                            : im.rh // s, : im.rw // s
-                        ]
-                    cands = det_candidates(mask, cfg_s)
-                    if s > 1 and len(cands):
-                        cands = cands * float(s)
-                    scores_i = _score_candidates(prob_np[im.row], cands)
-                    im.boxes, im.scores = det_finalize(
-                        cands, scores_i, cfg.det, im.rh, im.rw, im.ah, im.aw
-                    )
-            stats["t_contours"] += time.perf_counter() - t
-
-            t = time.perf_counter()
-            for i in ch.idxs:
-                im = imgs[i]
-                for j, b in enumerate(im.boxes):
-                    pb = PointBox(b)
-                    w_crop = max(int(max(pb.width_brc(), pb.width_tlc())), 1)
-                    h_crop = max(int(max(pb.height_brc(), pb.height_tlc())), 1)
-                    quad = np.asarray(b, np.float32)
-                    if h_crop / w_crop >= 1.5:
-                        # rot90-CCW crop == corners [tr, br, bl, tl]
-                        # (image_helper.rs:245-247)
-                        quad = quad[[1, 2, 3, 0]]
-                        h_crop, w_crop = w_crop, h_crop
-                    im.crops.append(_CropTask(i, j, quad, h_crop, w_crop, im=im, sid=sid))
-                stats["crops"] += len(im.boxes)
-            stats["t_score"] += time.perf_counter() - t
+                    for j, b in enumerate(im.boxes):
+                        pb = PointBox(b)
+                        w_crop = max(int(max(pb.width_brc(), pb.width_tlc())), 1)
+                        h_crop = max(int(max(pb.height_brc(), pb.height_tlc())), 1)
+                        quad = np.asarray(b, np.float32)
+                        if h_crop / w_crop >= 1.5:
+                            # rot90-CCW crop == corners [tr, br, bl, tl]
+                            # (image_helper.rs:245-247)
+                            quad = quad[[1, 2, 3, 0]]
+                            h_crop, w_crop = w_crop, h_crop
+                        im.crops.append(_CropTask(i, j, quad, h_crop, w_crop, im=im, sid=sid))
+                    stats["crops"] += len(im.boxes)
             if stage_callback is not None:
                 for i in ch.idxs:
                     im = imgs[i]
@@ -1011,69 +1048,120 @@ class DevicePipeline:
                 a["rows"] += int(img.shape[0])
                 a["crops"].extend((c, base) for c in chunk_crops)
                 if len(a["crops"]) >= 64:
-                    self._flush_acc(acc, key, handles)
+                    self._flush_acc(acc, key, handles, tm, sid)
 
-    def _fetch_texts(self, handles: list, stats: dict, texts: dict) -> None:
-        """Complete the host copies of every handle's cls + rec outputs and
-        decode texts into ``texts`` keyed (sid, img_i, box_i): handles may
-        hold crops of several stream batches (device_pipeline.py:1154-1226)."""
+    def _contours(self, imgs: list[_Img], ch: _Chunk, packed_np: np.ndarray,
+                  prob_np: np.ndarray) -> None:
+        """A chunk's det postprocess: contours, scoring and finalize in one
+        C++ call (``rt_det_chunk``), else numpy per image; sets each
+        image's boxes and scores."""
         cfg = self.cfg
-        t = time.perf_counter()
+        s = self._det_stride
+        mh_full, mw_full = ch.key[2] // s, ch.key[3] // s
+        row_packed = packed_np.shape[1] != mh_full  # kernel layout
+        min_sside = max(1, cfg.det.min_mini_box_size // s)
+        from ..native import det_chunk_native
+
+        nb = len(ch.idxs)
+        outs = det_chunk_native(
+            packed_np[:nb], row_packed, prob_np[:nb],
+            [(imgs[i].rh // s, imgs[i].rw // s) for i in ch.idxs], s,
+            [(imgs[i].rh, imgs[i].rw) for i in ch.idxs],
+            [(imgs[i].ah, imgs[i].aw) for i in ch.idxs],
+            min_sside, cfg.det.max_candidates, cfg.det.box_thresh,
+            cfg.det.unclip_ratio, cfg.det.min_mini_box_size,
+        )
+        if outs is not None:
+            for i, (bx, sc) in zip(ch.idxs, outs):
+                imgs[i].boxes, imgs[i].scores = bx, sc
+        else:  # no compiler: numpy fallback per image
+            import dataclasses
+
+            cfg_s = dataclasses.replace(cfg.det, min_mini_box_size=min_sside)
+            for i in ch.idxs:
+                im = imgs[i]
+                if row_packed:
+                    mask = unpack_rows(packed_np[im.row], im.rh // s, im.rw // s)
+                else:
+                    mask = unpack_mask(packed_np[im.row], mw_full)[
+                        : im.rh // s, : im.rw // s
+                    ]
+                cands = det_candidates(mask, cfg_s)
+                if s > 1 and len(cands):
+                    cands = cands * float(s)
+                scores_i = _score_candidates(prob_np[im.row], cands)
+                im.boxes, im.scores = det_finalize(
+                    cands, scores_i, cfg.det, im.rh, im.rw, im.ah, im.aw
+                )
+
+    def _fetch_texts(self, handles: list, stats: dict, texts: dict, tm: StageTimers,
+                     sid: int) -> None:
+        """Complete the host copies of every handle's cls + rec outputs (the
+        spans ``clsrec_wait``, and ``clsrec_device`` on a card) and decode
+        texts into ``texts`` keyed (sid, img_i, box_i) (the spans
+        ``texts``): handles may hold crops of several stream batches
+        (device_pipeline.py:1154-1226)."""
         taken = list(handles)
         handles.clear()
         for entries, pending in taken:
-            probs, flip, idxs, keep, score = self._host(pending)
-            n = len(entries)
-            probs, idxs, keep, score = probs[:n], idxs[:n], keep[:n], score[:n]
-            stats["bytes_down"] += (
-                probs.nbytes + flip.nbytes + idxs.nbytes + keep.nbytes + score.nbytes
-            )
-            pred = probs.argmax(axis=1) if n else np.zeros((0,), np.int64)
-            by_crop: dict[tuple[int, int, int], list[tuple[int, tuple]]] = {}
-            for r, e in enumerate(entries):
-                c = e[0]
-                by_crop.setdefault((c.sid, c.img_i, c.box_i), []).append((r, e))
-            for key, seg_rows in by_crop.items():
-                seg_rows.sort(key=lambda re: re[1][1])  # by seg index
-                r0, (c, _s, k, _x0, natural, _w) = seg_rows[0]
-                if cfg.use_cls:
-                    ki = int(pred[r0])
-                    c.cls_label = ClsLabel(
-                        label=int(cfg.cls.label[ki]), score=float(probs[r0, ki])
-                    )
-                if k == 1:
-                    text = self.chars.decode_indices(
-                        idxs[r0 : r0 + 1], keep[r0 : r0 + 1]
-                    )[0]
-                    texts[key] = RecText(text=text, score=float(score[r0]))
-                    continue
-                # chunked wide line: keep each timestep whose content-x
-                # centre (x0 + 8t + 4) lies in the segment's half-overlap
-                # window, then decode the concatenation
-                bw = idxs.shape[1] * 8
-                step = (natural - bw) / (k - 1)
-                cat_idx, cat_keep, w_scores, w_counts = [], [], [], []
-                tt = np.arange(idxs.shape[1], dtype=np.float64) * 8.0 + 4.0
-                for r, (_cc, s, _k, x0, _nat, _w) in seg_rows:
-                    lo = -np.inf if s == 0 else x0 + (bw - step) / 2.0
-                    hi = np.inf if s == k - 1 else x0 + (bw + step) / 2.0
-                    win = ((x0 + tt) >= lo) & ((x0 + tt) < hi)
-                    kr = keep[r] & win
-                    cat_idx.append(idxs[r])
-                    cat_keep.append(kr)
-                    w_scores.append(float(score[r]))
-                    w_counts.append(int(kr.sum()))
-                text = self.chars.decode_indices(
-                    np.concatenate(cat_idx)[None], np.concatenate(cat_keep)[None],
-                )[0]
-                tot = sum(w_counts)
-                sc = (
-                    sum(s_ * c_ for s_, c_ in zip(w_scores, w_counts)) / tot
-                    if tot else 0.0
-                )
-                texts[key] = RecText(text=text, score=float(sc))
-        stats["t_clsrec_fetch"] += time.perf_counter() - t
+            outs = self._host(pending, tm, "clsrec_wait", "clsrec_device", sid=sid)
+            with tm.time("texts", sid=sid):
+                self._texts(entries, outs, stats, texts)
 
+    def _texts(self, entries: list, outs: list[np.ndarray], stats: dict,
+               texts: dict) -> None:
+        """One handle's cls labels and texts from its host outputs."""
+        cfg = self.cfg
+        probs, flip, idxs, keep, score = outs
+        n = len(entries)
+        probs, idxs, keep, score = probs[:n], idxs[:n], keep[:n], score[:n]
+        stats["bytes_down"] += (
+            probs.nbytes + flip.nbytes + idxs.nbytes + keep.nbytes + score.nbytes
+        )
+        pred = probs.argmax(axis=1) if n else np.zeros((0,), np.int64)
+        by_crop: dict[tuple[int, int, int], list[tuple[int, tuple]]] = {}
+        for r, e in enumerate(entries):
+            c = e[0]
+            by_crop.setdefault((c.sid, c.img_i, c.box_i), []).append((r, e))
+        for key, seg_rows in by_crop.items():
+            seg_rows.sort(key=lambda re: re[1][1])  # by seg index
+            r0, (c, _s, k, _x0, natural, _w) = seg_rows[0]
+            if cfg.use_cls:
+                ki = int(pred[r0])
+                c.cls_label = ClsLabel(
+                    label=int(cfg.cls.label[ki]), score=float(probs[r0, ki])
+                )
+            if k == 1:
+                text = self.chars.decode_indices(
+                    idxs[r0 : r0 + 1], keep[r0 : r0 + 1]
+                )[0]
+                texts[key] = RecText(text=text, score=float(score[r0]))
+                continue
+            # chunked wide line: keep each timestep whose content-x
+            # centre (x0 + 8t + 4) lies in the segment's half-overlap
+            # window, then decode the concatenation
+            bw = idxs.shape[1] * 8
+            step = (natural - bw) / (k - 1)
+            cat_idx, cat_keep, w_scores, w_counts = [], [], [], []
+            tt = np.arange(idxs.shape[1], dtype=np.float64) * 8.0 + 4.0
+            for r, (_cc, s, _k, x0, _nat, _w) in seg_rows:
+                lo = -np.inf if s == 0 else x0 + (bw - step) / 2.0
+                hi = np.inf if s == k - 1 else x0 + (bw + step) / 2.0
+                win = ((x0 + tt) >= lo) & ((x0 + tt) < hi)
+                kr = keep[r] & win
+                cat_idx.append(idxs[r])
+                cat_keep.append(kr)
+                w_scores.append(float(score[r]))
+                w_counts.append(int(kr.sum()))
+            text = self.chars.decode_indices(
+                np.concatenate(cat_idx)[None], np.concatenate(cat_keep)[None],
+            )[0]
+            tot = sum(w_counts)
+            sc = (
+                sum(s_ * c_ for s_, c_ in zip(w_scores, w_counts)) / tot
+                if tot else 0.0
+            )
+            texts[key] = RecText(text=text, score=float(sc))
 
     @torch.inference_mode()
     def _assemble(self, state: dict, acc: dict, handles: list, texts: dict,
@@ -1085,37 +1173,44 @@ class DevicePipeline:
         cfg = self.cfg
         imgs: list[_Img] = state["imgs"]
         stats = state["stats"]
+        tm: StageTimers = state["timers"]
         sid = state["sid"]
         for key in [k for k, a in acc.items() if any(c.sid <= sid for c, _ in a["crops"])]:
-            self._flush_acc(acc, key, handles)
+            self._flush_acc(acc, key, handles, tm, sid)
         if handles:
-            self._fetch_texts(handles, stats, texts)
+            self._fetch_texts(handles, stats, texts, tm, sid)
         errors: dict[int, RettoError] = state["errors"]
         out: list[OcrResult | RettoError] = []
-        for i, im in enumerate(imgs):
-            if im is None:
-                out.append(errors[i])
-                continue
-            boxes_ori = scale_and_clip(im.boxes, im.aw, im.ah, im.ori_w, im.ori_h)
-            det_res = DetResult(
-                [DetBox(PointBox(b), float(s)) for b, s in zip(boxes_ori, im.scores)]
-            )
-            cls_res = ClsResult(
-                [c.cls_label or ClsLabel() for c in im.crops] if cfg.use_cls else []
-            )
-            rec_res = RecResult([texts.pop((sid, i, c.box_i), RecText()) for c in im.crops])
-            if stage_callback is not None:
-                stage_callback(i, StageResult(stage="cls", result=cls_res))
-                stage_callback(i, StageResult(stage="rec", result=rec_res))
-            out.append(OcrResult(det_res, cls_res, rec_res))
-        stats["t_total"] = time.perf_counter() - state["t0"]
-        self.last_stats = stats
+        with tm.time("assemble", sid=sid):
+            for i, im in enumerate(imgs):
+                if im is None:
+                    out.append(errors[i])
+                    continue
+                boxes_ori = scale_and_clip(im.boxes, im.aw, im.ah, im.ori_w, im.ori_h)
+                det_res = DetResult(
+                    [DetBox(PointBox(b), float(s)) for b, s in zip(boxes_ori, im.scores)]
+                )
+                cls_res = ClsResult(
+                    [c.cls_label or ClsLabel() for c in im.crops] if cfg.use_cls else []
+                )
+                rec_res = RecResult([texts.pop((sid, i, c.box_i), RecText())
+                                     for c in im.crops])
+                if stage_callback is not None:
+                    stage_callback(i, StageResult(stage="cls", result=cls_res))
+                    stage_callback(i, StageResult(stage="rec", result=rec_res))
+                out.append(OcrResult(det_res, cls_res, rec_res))
+        last = {**dict.fromkeys(_STAGE_KEYS, 0.0), **stats, **tm.stats()}
+        last["t_clsrec_fetch"] = last.get("t_clsrec_wait", 0.0) + last.get("t_texts", 0.0)
+        last["t_total"] = time.perf_counter() - state["t0"]
+        self.last_stats = last
         m = self.metrics
         m.images += stats["images"]
         m.crops += stats["crops"]
-        m.latencies_s.append(stats["t_total"])
-        for k in ("t_decode", "t_mask_fetch", "t_contours", "t_score", "t_clsrec_fetch"):
-            m.stage_time[k[2:]] += stats[k]
+        m.pad_concats += stats["pad_concats"]
+        m.record_latency(last["t_total"])
+        for name, seconds in tm.totals.items():
+            m.stage_time[name] += seconds
+        m.stage_time["clsrec_fetch"] += last["t_clsrec_fetch"]
         return out
 
     # ------------------------------------------------------------------ #
@@ -1144,22 +1239,16 @@ class DevicePipeline:
         bot_b = q[3] + b * (q[2] - q[3])
         return np.stack([top_a, top_b, bot_b, bot_a])
 
-    def _dispatch_clsrec(self, rgb: dict, valids_src: dict,
-                         crops: list[tuple[_CropTask, int]], stats: dict):
-        """One fused cls+rec dispatch per rec width bucket (and per warp
-        kind).  Lines wider than the largest bucket split into k uniformly
-        spaced overlapping segments of the max width; the flipped reading
-        of segment s samples the mirrored segment
-        (device_pipeline.py:1317-1478).  Each bucket's rows split over the
-        'data' shards; each shard runs as one captured graph on its device
-        over that device's image tensor (``rgb`` and ``valids_src`` by
-        device), keyed (image tensor shape, shard batch, width, use_cls,
-        warp kind).  Returns (entries, pending host copies per shard)
-        handles; entries are (crop, seg, k, x0, natural, rec_width).  The
-        caller holds the lock."""
+    def _clsrec_buckets(self, crops: list[tuple[_CropTask, int]]) -> tuple[dict, list]:
+        """The crops' dispatches: ({id(crop): its chunk's first row}, [(rec
+        width bucket, aligned, entries)]), one per rec width bucket, warp
+        kind and batch of at most the largest batch bucket.  Lines wider
+        than the largest width bucket split into k uniformly spaced
+        overlapping segments of the max width; the flipped reading of
+        segment s samples the mirrored segment (device_pipeline.py:1317-1478).
+        Entries are (crop, seg, k, x0, natural, rec_width)."""
         cfg = self.cfg
         bk = cfg.buckets
-        _, ch_h, cw = cfg.cls.image_shape
         _, rh, rw_default = cfg.rec.image_shape
         wmax = bk.rec_width_buckets[-1]
         base_of = {id(c): b for (c, b) in crops}
@@ -1179,77 +1268,91 @@ class DevicePipeline:
                     by_width.setdefault(wmax, []).append(
                         (c, s, k, s * step, float(natural), wmax)
                     )
-        handles = []
         bmax = bk.rec_batch_buckets[-1]
+        buckets = []
         for bw, bucket_items in sorted(by_width.items()):
             split: dict[bool, list[tuple]] = {True: [], False: []}
             for e in bucket_items:
                 split[_is_aligned(e[0].quad)].append(e)
             for aligned, all_items in split.items():
                 for i0 in range(0, len(all_items), bmax):
-                    items = all_items[i0 : i0 + bmax]
-                    rows, rec_widths, cls_widths = [], [], []
-                    fwd_g, flip_g, cls_g, clsf_g = [], [], [], []
-                    for (c, s, k, x0, natural, w_eff) in items:
-                        rows.append(base_of[id(c)] + c.im.row)
-                        rec_widths.append(w_eff)
-                        cls_widths.append(min(cw, int(math.ceil(ch_h * c.crop_w / c.crop_h))))
-                        if k == 1:
-                            sub = sub_m = c.quad
-                        else:
-                            sub = self._sub_quad(c.quad, x0, x0 + bw, natural)
-                            sub_m = self._sub_quad(c.quad, natural - bw - x0,
-                                                   natural - x0, natural)
-                        seg_w = w_eff if k == 1 else bw
-                        if aligned:
-                            cls_g.append(_aligned_scal(c.quad, cls_widths[-1], ch_h, False))
-                            clsf_g.append(_aligned_scal(c.quad, cls_widths[-1], ch_h, True))
-                            fwd_g.append(_aligned_scal(sub, seg_w, rh, False))
-                            flip_g.append(_aligned_scal(sub_m, seg_w, rh, True))
-                        else:
-                            cls_g.append(self._quad_homog(c.quad, cls_widths[-1], ch_h))
-                            clsf_g.append(self._quad_homog(c.quad, cls_widths[-1], ch_h,
-                                                           rot180=True))
-                            fwd_g.append(self._quad_homog(sub, seg_w, rh))
-                            flip_g.append(self._quad_homog(sub_m, seg_w, rh, rot180=True))
-                    geos = [np.asarray(g, np.float32) for g in (cls_g, clsf_g, fwd_g, flip_g)]
-                    nb = self._batch_bucket(len(items), bk.rec_batch_buckets)
-                    if nb > len(items):
-                        pad = nb - len(items)
-                        if aligned:
-                            filler = np.tile(np.asarray([[0.0, 1.0, 0.0, 1.0]], np.float32),
-                                             (pad, 1))
-                        else:
-                            filler = np.tile(np.eye(3, dtype=np.float32)[None], (pad, 1, 1))
-                        geos = [np.concatenate([g, filler]) for g in geos]
-                        rec_widths = rec_widths + [1] * pad
-                        cls_widths = cls_widths + [1] * pad
-                        rows = rows + [0] * pad
-                    self.metrics.record_batch("rec_batch", len(items), nb)
-                    self.metrics.record_batch(
-                        f"rec_width_{bw}", int(sum(rec_widths[: len(items)])),
-                        bw * len(items),
-                    )
-                    stats["dispatches"] += 1
-                    use_cls = bool(cfg.use_cls)
-                    host = [np.asarray(rows, np.int64), np.asarray(cls_widths, np.int32),
-                            np.asarray(rec_widths, np.int32), *geos]
-                    per = nb // self._data_size
-                    pending = []
-                    for k, rep in enumerate(self._shards):
-                        part = slice(k * per, (k + 1) * per)
-                        with on_device(rep.device):
-                            rows_t, cls_w, rec_w, cls_geo, cls_flips, rec_geo, rec_flips = (
-                                self._put(h[part], rep) for h in host)
-                            img = rgb[rep.device]
-                            out = rep.clsrec_graphs.run(
-                                (tuple(img.shape), per, bw, use_cls, aligned),
-                                lambda *t, bw=bw, use_cls=use_cls, rep=rep: self._clsrec_fwd(
-                                    *t, out_w=bw, use_cls=use_cls, rep=rep),
-                                img, rows_t, cls_geo, cls_flips, cls_w, rec_geo, rec_flips,
-                                rec_w, valids_src[rep.device],
-                            )
-                            # the graph's outputs belong to the next replay of this key
-                            pending.append(self._to_host(out))
-                    handles.append((items, pending))
-        return handles
+                    buckets.append((bw, aligned, all_items[i0 : i0 + bmax]))
+        return base_of, buckets
+
+    def _dispatch_clsrec(self, rgb: dict, valids_src: dict, base_of: dict, bw: int,
+                         aligned: bool, items: list, stats: dict) -> list:
+        """One fused cls + rec dispatch (an entry of ``_clsrec_buckets``):
+        its geometry, uploads and graph replay.  The rows split over the
+        'data' shards; each shard runs as one captured graph on its device
+        over that device's image tensor (``rgb`` and ``valids_src`` by
+        device), keyed (image tensor shape, shard batch, width, use_cls,
+        warp kind).  Returns the pending host copies per shard
+        (``_to_host``).  The caller holds the lock."""
+        cfg = self.cfg
+        bk = cfg.buckets
+        _, ch_h, cw = cfg.cls.image_shape
+        _, rh, _ = cfg.rec.image_shape
+        rows, rec_widths, cls_widths = [], [], []
+        fwd_g, flip_g, cls_g, clsf_g = [], [], [], []
+        for (c, s, k, x0, natural, w_eff) in items:
+            rows.append(base_of[id(c)] + c.im.row)
+            rec_widths.append(w_eff)
+            cls_widths.append(min(cw, int(math.ceil(ch_h * c.crop_w / c.crop_h))))
+            if k == 1:
+                sub = sub_m = c.quad
+            else:
+                sub = self._sub_quad(c.quad, x0, x0 + bw, natural)
+                sub_m = self._sub_quad(c.quad, natural - bw - x0,
+                                       natural - x0, natural)
+            seg_w = w_eff if k == 1 else bw
+            if aligned:
+                cls_g.append(_aligned_scal(c.quad, cls_widths[-1], ch_h, False))
+                clsf_g.append(_aligned_scal(c.quad, cls_widths[-1], ch_h, True))
+                fwd_g.append(_aligned_scal(sub, seg_w, rh, False))
+                flip_g.append(_aligned_scal(sub_m, seg_w, rh, True))
+            else:
+                cls_g.append(self._quad_homog(c.quad, cls_widths[-1], ch_h))
+                clsf_g.append(self._quad_homog(c.quad, cls_widths[-1], ch_h,
+                                               rot180=True))
+                fwd_g.append(self._quad_homog(sub, seg_w, rh))
+                flip_g.append(self._quad_homog(sub_m, seg_w, rh, rot180=True))
+        geos = [np.asarray(g, np.float32) for g in (cls_g, clsf_g, fwd_g, flip_g)]
+        nb = self._batch_bucket(len(items), bk.rec_batch_buckets)
+        if nb > len(items):
+            pad = nb - len(items)
+            if aligned:
+                filler = np.tile(np.asarray([[0.0, 1.0, 0.0, 1.0]], np.float32),
+                                 (pad, 1))
+            else:
+                filler = np.tile(np.eye(3, dtype=np.float32)[None], (pad, 1, 1))
+            geos = [np.concatenate([g, filler]) for g in geos]
+            rec_widths = rec_widths + [1] * pad
+            cls_widths = cls_widths + [1] * pad
+            rows = rows + [0] * pad
+        self.metrics.record_batch("rec_batch", len(items), nb)
+        self.metrics.record_batch(
+            f"rec_width_{bw}", int(sum(rec_widths[: len(items)])),
+            bw * len(items),
+        )
+        stats["dispatches"] += 1
+        use_cls = bool(cfg.use_cls)
+        host = [np.asarray(rows, np.int64), np.asarray(cls_widths, np.int32),
+                np.asarray(rec_widths, np.int32), *geos]
+        per = nb // self._data_size
+        pending = []
+        for k, rep in enumerate(self._shards):
+            part = slice(k * per, (k + 1) * per)
+            with on_device(rep.device):
+                rows_t, cls_w, rec_w, cls_geo, cls_flips, rec_geo, rec_flips = (
+                    self._put(h[part], rep) for h in host)
+                img = rgb[rep.device]
+                out, marks = self._run_graph(
+                    rep, rep.clsrec_graphs, (tuple(img.shape), per, bw, use_cls, aligned),
+                    lambda *t, bw=bw, use_cls=use_cls, rep=rep: self._clsrec_fwd(
+                        *t, out_w=bw, use_cls=use_cls, rep=rep),
+                    img, rows_t, cls_geo, cls_flips, cls_w, rec_geo, rec_flips,
+                    rec_w, valids_src[rep.device],
+                )
+                # the graph's outputs belong to the next replay of this key
+                pending.append(self._to_host(out, marks))
+        return pending

@@ -35,18 +35,20 @@ Captures run with ``capture_error_mode="thread_local"``: the pipeline's
 fetch threads wait on CUDA events while another thread captures, which
 the default global mode forbids.  The caller serialises captures and
 replays with every other dispatch (``DevicePipeline._lock``).
-``capture_s`` sums the host seconds spent in warm-up and capture.
+``capture_s`` sums the host seconds spent in warm-up and capture, the
+``capture`` spans of ``timers`` (``utils.timing.StageTimers``; the range
+``retto.capture key=...`` on a profiler's timeline).
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, Hashable, Sequence
 
 import torch
 
 from .. import kernels
+from ..utils.timing import StageTimers
 
 __all__ = ["GraphCache"]
 
@@ -82,10 +84,17 @@ class GraphCache:
         # a capture stream on this card: ``torch.cuda.graph``'s default is
         # one stream for the whole process, on the card of its first use
         self._stream = torch.cuda.Stream(device) if cuda else None
-        self.capture_s = 0.0
+        self.timers = StageTimers()
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._entries
+
+    @property
+    def capture_s(self) -> float:
+        return self.timers.totals.get("capture", 0.0)
 
     def run(self, key: Hashable, fn: Callable[..., Sequence[torch.Tensor]],
             *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -99,7 +108,8 @@ class GraphCache:
         if entry is None:
             static_in = [a.clone() for a in args]
             if self.device.type == "cuda":
-                entry = self._capture(fn, static_in)
+                with self.timers.time("capture", key=key):
+                    entry = self._capture(fn, static_in)
             else:
                 entry = _Entry(static_in, tuple(o.clone() for o in fn(*static_in)))
             self._entries[key] = entry
@@ -116,7 +126,6 @@ class GraphCache:
         return entry.static_out
 
     def _capture(self, fn, static_in: list[torch.Tensor]) -> _Entry:
-        t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -132,5 +141,4 @@ class GraphCache:
         for wrapper, n0 in zip(kernels.COUNTED, before):
             held.append(wrapper.launches - n0)
             wrapper.launches = n0
-        self.capture_s += time.perf_counter() - t0
         return _Entry(static_in, static_out, graph, tuple(held))

@@ -54,6 +54,7 @@ from ..results import (
     StageResult,
 )
 from ..utils.metrics import PipelineMetrics
+from ..utils.timing import StageTimers
 from ..weights import load_flax_params, load_params_meta
 from .device_pipeline import DevicePipeline
 from .engine import Engine, TorchEngine
@@ -112,6 +113,9 @@ class RettoSession:
         self._mesh = mesh
         self.chars = self._resolve_charset(charset)
         self.metrics = PipelineMetrics()
+        # set-up spans: ``load_weights`` (each checkpoint's load and its
+        # Flax-layout conversion)
+        self.timers = StageTimers()
         self._device_pipeline: DevicePipeline | None = None
         if engine is None:
             # one dispatch lock per session: the staged engine and the fused
@@ -198,7 +202,8 @@ class RettoSession:
         for kind in ("det", "cls", "rec"):
             flat, kw = None, {}
             if weights:
-                flat, meta = load_params_meta(weights[kind])
+                with self.timers.time("load_weights", kind=kind):
+                    flat, meta = load_params_meta(weights[kind])
                 kw = {
                     k: tuple(v) if isinstance(v, list) else v
                     for k, v in ((meta or {}).get("overrides") or {}).items()
@@ -211,7 +216,8 @@ class RettoSession:
             with torch.random.fork_rng(devices=[]):
                 model = builders[kind](p, compute_dtype=dtype_name, **kw)
             if flat is not None:
-                load_flax_params(model, flat)
+                with self.timers.time("load_weights", kind=kind):
+                    load_flax_params(model, flat)
             else:
                 _random_init(model, gen)
             cast_compute(model, torch_dtype(dtype_name))

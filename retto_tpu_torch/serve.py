@@ -19,6 +19,15 @@ Endpoints (stdlib http.server; no extra deps):
     GET  /healthz     -> {"ok": true}
     GET  /metrics     -> micro-batcher + pipeline counters
 
+``/metrics``: ``batches``, ``images`` and ``avg_batch`` of the micro-batcher;
+``queue_wait_ms`` {p50, p99, count}, the wait of each of the newest 4,096
+requests (``utils.metrics.WINDOW``) from ``submit`` to the dispatch of its
+batch; and the session's ``PipelineMetrics.summary()`` (latency over the
+newest 4,096 calls, bucket occupancy, per-stage seconds of the fused
+pipeline's spans).  Each batch runs inside the span ``batch``
+(``MicroBatcher.timers``; the range ``retto.batch`` on a profiler's
+timeline).
+
 ``server_close()`` stops the batcher; the session's ``close()`` ends the
 fused pipeline's threads.
 
@@ -36,11 +45,16 @@ import logging
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
+
 from .errors import RettoError
+from .utils.metrics import WINDOW
+from .utils.timing import StageTimers
 
 logger = logging.getLogger("retto_tpu_torch.serve")
 
@@ -75,6 +89,9 @@ class MicroBatcher:
         self.queue: queue.Queue = queue.Queue()
         self.batches = 0
         self.images = 0
+        # seconds from submit to the batch's dispatch, newest requests
+        self.queue_waits: deque = deque(maxlen=WINDOW)
+        self.timers = StageTimers()  # written by the batching thread only
         self._stopped = False
         # when the runner is the staged session itself, this lock is shared
         # with the /ocr/stream path so the session's jitted stages and
@@ -91,8 +108,16 @@ class MicroBatcher:
             fut.set_exception(RuntimeError("batcher stopped"))
             return fut
         fut = Future()
-        self.queue.put((data, fut, stage_cb))
+        self.queue.put((data, fut, stage_cb, time.perf_counter()))
         return fut
+
+    def queue_wait_ms(self) -> dict:
+        """{p50, p99, count} of the newest requests' queue waits."""
+        waits = np.asarray(tuple(self.queue_waits)) * 1e3  # a snapshot
+        if not len(waits):
+            return {"p50": 0.0, "p99": 0.0, "count": 0}
+        return {"p50": round(float(np.percentile(waits, 50)), 3),
+                "p99": round(float(np.percentile(waits, 99)), 3), "count": len(waits)}
 
     def stop(self) -> None:
         """Stop the loop and fail everything still queued: a future that
@@ -137,6 +162,8 @@ class MicroBatcher:
             batch = self._collect()
             if not batch:
                 continue
+            now = time.perf_counter()
+            self.queue_waits.extend(now - item[3] for item in batch)
             self.batches += 1
             self.images += len(batch)
             datas = [item[0] for item in batch]
@@ -152,7 +179,7 @@ class MicroBatcher:
                             _cbs[i] = None
                 kw["stage_callback"] = dispatch
             try:
-                with self.run_lock:
+                with self.run_lock, self.timers.time("batch", batch=self.batches):
                     results = self.runner.run_many(datas, **kw)
                 for item, res in zip(batch, results):
                     fut = item[1]
@@ -163,7 +190,7 @@ class MicroBatcher:
                     else:
                         fut.set_result(res)
             except Exception:  # noqa: BLE001 - isolate per image
-                for d, fut, cb in batch:
+                for d, fut, cb, _t in batch:
                     try:
                         with self.run_lock:
                             res = self.runner.run(d)
@@ -202,6 +229,7 @@ def make_handler(session, batcher: MicroBatcher, stream_lock: threading.Lock):
                     "avg_batch": round(
                         batcher.images / batcher.batches, 2
                     ) if batcher.batches else 0.0,
+                    "queue_wait_ms": batcher.queue_wait_ms(),
                     "session": session.metrics.summary(),
                 }
                 self._send(200, json.dumps(doc).encode("utf-8"))

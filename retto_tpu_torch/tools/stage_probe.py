@@ -32,6 +32,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from ..utils.timing import StageTimers
 from ._common import (
     WEIGHTS, Row, add_device_args, card_line, fixture_pages, flops_of, measure_row,
     print_rows, session,
@@ -98,7 +99,7 @@ def measure(device: str = "cuda", weights: str | None = str(WEIGHTS),
                 iters, flops_of(fn, *args), per_call=n))
         mb = (packed.numel() * packed.element_size() + prob.numel() * prob.element_size()) / 1e6
         rows.append(measure_row(f"mask fetch {mb:.2f}MB",
-                                lambda: dp._host([dp._to_host((packed, prob))]), dev, iters,
+                                lambda: dp._fetch_det([dp._to_host((packed, prob))], 0, 0), dev, iters,
                                 kind="transfer", per_call=len(dets)))
         prob_np = prob[0].cpu().numpy()
         h, w = (4 * n for n in prob_np.shape)  # the det canvas the quads live on
@@ -153,8 +154,10 @@ def measure(device: str = "cuda", weights: str | None = str(WEIGHTS),
                                 lambda: dp._clsrec_graphs.run(skey, syn_fn, *syn), dev, iters,
                                 flops_of(syn_fn, *syn), per_call=0))
         out = dp._clsrec_graphs.run(skey, syn_fn, *syn)
-        rows.append(measure_row("clsrec fetch", lambda: dp._host([dp._to_host(out)]), dev,
-                                iters, kind="transfer", per_call=0))
+        rows.append(measure_row(
+            "clsrec fetch", lambda: dp._host([dp._to_host(out)], StageTimers(), "clsrec_wait",
+                                             "clsrec_device"),
+            dev, iters, kind="transfer", per_call=0))
         x = torch.zeros((first[3][0].shape[0], *first[1][1:3], 3), dtype=dp._det_dtype,
                         device=dev)
         model_flops = flops_of(lambda v: rep.det(v, nhwc=True, raw_logits=True), x)

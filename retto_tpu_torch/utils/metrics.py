@@ -5,19 +5,25 @@ padding-waste fractions — the metrics the reference lacks (it logs only a
 single aggregate avg, retto-cli/src/main.rs:89-93).
 
 Port copy of ``retto_tpu/utils/metrics.py``: ``PipelineMetrics`` as it is,
-and ``profile_trace`` over ``torch.profiler`` in place of ``jax.profiler``.
+but for two additions (latencies kept for the newest ``WINDOW`` calls only,
+so a server's ``/metrics`` does not grow with its uptime, and the count of
+crop-accumulator flushes that padded chunks of mixed shapes), and
+``profile_trace`` over ``torch.profiler`` in place of ``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
 
 __all__ = ["PipelineMetrics", "profile_trace"]
+
+# the newest samples a latency or wait summary reads
+WINDOW = 4096
 
 
 @dataclass
@@ -26,7 +32,9 @@ class PipelineMetrics:
 
     images: int = 0
     crops: int = 0
-    latencies_s: list[float] = field(default_factory=list)
+    pad_concats: int = 0
+    latencies_s: deque = field(default_factory=lambda: deque(maxlen=WINDOW))
+    latency_total_s: float = 0.0  # over every call, for images_per_sec
     # bucket name -> [used_slots, padded_slots]
     bucket_fill: dict[str, list[int]] = field(
         default_factory=lambda: defaultdict(lambda: [0, 0])
@@ -42,8 +50,12 @@ class PipelineMetrics:
         try:
             yield
         finally:
-            self.latencies_s.append(time.perf_counter() - t0)
+            self.record_latency(time.perf_counter() - t0)
             self.images += 1
+
+    def record_latency(self, seconds: float) -> None:
+        self.latencies_s.append(seconds)
+        self.latency_total_s += seconds
 
     @contextmanager
     def measure_stage(self, name: str):
@@ -59,8 +71,9 @@ class PipelineMetrics:
         f[1] += total
 
     def summary(self) -> dict:
-        lat = np.asarray(self.latencies_s) if self.latencies_s else np.zeros(1)
-        total = float(lat.sum())
+        # a snapshot: other threads append while a server reads
+        lat = np.asarray(tuple(self.latencies_s)) if self.latencies_s else np.zeros(1)
+        total = self.latency_total_s
         occupancy = {
             k: round(v[0] / v[1], 4) if v[1] else 1.0
             for k, v in self.bucket_fill.items()
@@ -68,6 +81,7 @@ class PipelineMetrics:
         return {
             "images": self.images,
             "crops": self.crops,
+            "pad_concats": self.pad_concats,
             "images_per_sec": round(self.images / total, 3) if total else 0.0,
             "latency_ms": {
                 "p50": round(float(np.percentile(lat, 50)) * 1000, 2),
@@ -87,11 +101,12 @@ class PipelineMetrics:
 
 @contextmanager
 def profile_trace(logdir: str):
-    """``torch.profiler`` trace of the block: host (CPU) activity, and the
-    card's kernels when CUDA is available.  On exit it writes a Chrome trace
-    (``trace.json``) into ``logdir``, created if missing, which Perfetto
-    (ui.perfetto.dev) or ``chrome://tracing`` opens; yields the profiler,
-    whose ``key_averages()`` tables the same run."""
+    """``torch.profiler`` trace of the block: host (CPU) activity of every
+    thread, the port's ``retto.*`` spans among it (``utils.timing``), and
+    the card's kernels when CUDA is available.  On exit it writes a Chrome
+    trace (``trace.json``) into ``logdir``, created if missing, which
+    Perfetto (ui.perfetto.dev) or ``chrome://tracing`` opens; yields the
+    profiler, whose ``key_averages()`` tables the same run."""
     import os
 
     import torch
@@ -101,7 +116,10 @@ def profile_trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities, record_shapes=True) as prof:
+    # the default records host ranges of the starting thread only
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, record_shapes=True,
+                 experimental_config=every_thread) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

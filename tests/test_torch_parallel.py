@@ -208,9 +208,9 @@ def test_stream_over_mesh_equals_run_many(tiny_weights):
                       mesh=make_mesh(devices=[torch.device("cpu")] * 2)) as session:
         dp = session.device_pipeline()
         ref = [_lines(dp.run_many(b)) for b in batches]
-        pads = dp.pad_concats
+        pads = dp.metrics.pad_concats
         got = [_lines(out) for out in dp.stream(batches)]
-        assert dp.pad_concats > pads
+        assert dp.metrics.pad_concats > pads
     assert sum(len(b) for r in ref for b, _ in r) > 0
     for r, g in zip(ref, got):
         _assert_same(g, r)

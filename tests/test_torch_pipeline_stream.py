@@ -93,9 +93,9 @@ def test_mixed_sizes_cross_shape_accumulation(tiny_weights):  # noqa: F811
         batches = _batches(7, MIXED_SIZES, 3)
         seq = [tdp.run_many(b) for b in batches]
         assert any(len(r.det_result) for b in seq for r in b)
-        before = tdp.pad_concats
+        before = tdp.metrics.pad_concats
         got = list(tdp.stream(batches))
-        assert tdp.pad_concats > before  # the mixed-shape path ran
+        assert tdp.metrics.pad_concats > before  # the mixed-shape path ran
         ref = list(jdp.stream(batches))
         for s, g, r in zip(seq, got, ref):
             _assert_same(s, g)

@@ -25,6 +25,7 @@ from retto_tpu_torch import BucketConfig, RettoSession, SessionConfig
 from retto_tpu_torch.ops.charset import CharacterDict
 from retto_tpu_torch.ops.db_pack import db_epilogue
 from retto_tpu_torch.pipeline import device_pipeline
+from retto_tpu_torch.utils.timing import StageTimers
 from torch_tiny_ckpt import configs as _configs, write_tiny_checkpoints
 
 
@@ -143,9 +144,10 @@ def test_corrupt_input_is_isolated(pipelines):
 
 
 def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
-    """``_dispatch_clsrec`` + ``_fetch_texts`` on hand-made crop tasks: a
-    line wider than the largest rec width bucket (320 here) splits into
-    overlapping segments whose CTC streams are merged on the host
+    """``_clsrec_buckets``, ``_dispatch_clsrec`` + ``_fetch_texts`` on
+    hand-made crop tasks: a line wider than the largest rec width bucket
+    (320 here) splits into overlapping segments whose CTC streams are
+    merged on the host
     (device_pipeline.py:1199-1225, :1358-1365); an aligned quad takes the
     separable warp, a tilted one the gather warp."""
     import jax.numpy as jnp
@@ -184,10 +186,13 @@ def test_wide_line_chunking_and_gather_warp_match_jax(pipelines):
     jtexts, ttexts = {}, {}
     jdp._fetch_texts(jh, stats(), jtexts)
     with torch.inference_mode():  # run_many's mode around the internals
-        th = tdp._dispatch_clsrec({tdp.device: torch.from_numpy(imgs)},
-                                  {tdp.device: torch.from_numpy(valid)}, tt, stats())
+        base_of, buckets = tdp._clsrec_buckets(tt)
+        th = [(items, tdp._dispatch_clsrec({tdp.device: torch.from_numpy(imgs)},
+                                           {tdp.device: torch.from_numpy(valid)}, base_of,
+                                           bw, aligned, items, stats()))
+              for bw, aligned, items in buckets]
         assert max(e[2] for items, _ in th for e in items) == 4  # the wide line split
-        tdp._fetch_texts(th, stats(), ttexts)
+        tdp._fetch_texts(th, stats(), ttexts, StageTimers(), 0)
     for j in range(len(quads)):
         r, g = jtexts[(0, jt[j][0].img_i, j)], ttexts[(0, tt[j][0].img_i, j)]
         assert g.text == r.text and abs(g.score - r.score) <= 1e-5

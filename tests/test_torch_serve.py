@@ -138,6 +138,70 @@ def test_microbatcher_gathers():
     assert len(calls) <= 3
 
 
+def test_microbatcher_reports_the_queue_wait_behind_a_running_batch():
+    """A request queued while a batch runs waits at least as long as the
+    batch keeps running after it was queued; the batch runs in the span
+    ``batch``."""
+    started, release = threading.Event(), threading.Event()
+
+    class Runner:
+        def run_many(self, datas):
+            started.set()
+            assert release.wait(timeout=10)
+            return [len(d) for d in datas]
+
+    b = MicroBatcher(Runner(), max_batch=1, max_wait_ms=1.0)
+    try:
+        first = b.submit(b"a")
+        assert started.wait(timeout=10)
+        second = b.submit(b"bb")
+        hold = 0.2
+        time.sleep(hold)
+        release.set()
+        assert first.result(timeout=10) == 1 and second.result(timeout=10) == 2
+    finally:
+        release.set()
+        b.stop()
+    assert len(b.queue_waits) == 2
+    assert max(b.queue_waits) >= hold
+    doc = b.queue_wait_ms()
+    assert doc["count"] == 2 and doc["p99"] >= doc["p50"] >= 0.0
+    assert b.timers.counts["batch"] == 2
+
+
+def test_serve_windows_are_bounded():
+    from retto_tpu_torch.utils.metrics import WINDOW, PipelineMetrics
+
+    m = PipelineMetrics()
+    for i in range(WINDOW + 10):
+        with m.measure_image():
+            pass
+        m.record_latency(1.0)
+    assert len(m.latencies_s) == WINDOW and m.latencies_s[-1] == 1.0
+    # the rate reads every call, not only the window's
+    assert m.summary()["images_per_sec"] == pytest.approx(
+        m.images / m.latency_total_s, rel=1e-3)
+    assert m.latency_total_s >= WINDOW + 10
+
+    class Runner:
+        def run_many(self, datas):
+            return [0 for _ in datas]
+
+    b = MicroBatcher(Runner())
+    b.stop()
+    b.queue_waits.extend([0.001] * (WINDOW + 3))
+    assert b.queue_wait_ms()["count"] == WINDOW
+
+
+def test_metrics_endpoint_reports_queue_wait(server):
+    post(f"{server}/ocr", png_bytes())
+    with urllib.request.urlopen(f"{server}/metrics", timeout=30) as r:
+        body = json.loads(r.read())
+    q = body["queue_wait_ms"]
+    assert set(q) == {"p50", "p99", "count"} and q["count"] >= 1
+    assert 0.0 <= q["p50"] <= q["p99"]
+
+
 def test_microbatcher_isolates_failures():
     class Runner:
         def run_many(self, datas):
