@@ -19,6 +19,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +29,7 @@ logger = logging.getLogger("retto_tpu_torch.native")
 _HERE = Path(__file__).parent
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()  # one build; no thread reads a half-made _LIB
 
 
 def _build_lib() -> Path | None:
@@ -64,7 +66,14 @@ def _load() -> ctypes.CDLL | None:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOAD_LOCK:
+        if not _TRIED:
+            _LIB = _open()
+            _TRIED = True
+    return _LIB
+
+
+def _open() -> ctypes.CDLL | None:
     if os.environ.get("RETTO_NATIVE") == "0":
         return None
     path = _build_lib()
@@ -147,7 +156,6 @@ def _load() -> ctypes.CDLL | None:
             u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             u8p, u8p,
         ]
-    _LIB = lib
     return lib
 
 

@@ -10,29 +10,33 @@ probabilities and CTC indices/keep-masks/scores, and runs the sequential
 tail: contours, min-area rects and unclip (``native`` ``rt_det_chunk``),
 and string assembly.
 
-Scheduling, as in the JAX pipeline: a call is split into det chunks of
-``BucketConfig.det_chunk`` images.  An upload thread stacks each chunk
-into pinned host buffers, copies it to the card without blocking and
-dispatches its det forward; the copies of the det maps to the host are
-enqueued right behind it and completed on one of two fetch threads, while
-the calling thread traces the contours of earlier chunks and dispatches
-cls + rec.  The det forward (per chunk key) and each fused cls + rec
-bucket run as one captured CUDA graph each (``pipeline.graphs``, the
-counterpart of ``_build_jits``; ``compile_count`` counts them).  Crops
-accumulate across chunks and, in ``stream``, across batches, keyed by
-channel count: chunks of other upload shapes meet in a device edge pad +
-concat (``_pad_concat``).
+Scheduling, as in the JAX pipeline but for the post pool: a call is split
+into det chunks of ``BucketConfig.det_chunk`` images.  An upload thread
+stacks each chunk into pinned host buffers, copies it to the card without
+blocking and dispatches its det forward; the copies of the det maps to the
+host are enqueued right behind it and completed on one of two fetch
+threads, which then hands each image of the chunk to the post pool
+(``_post_workers`` threads): contours, scoring and finalize in one
+GIL-released C++ call an image, as soon as the maps land.  Meanwhile the
+calling thread decodes later pages, then takes each chunk's boxes in chunk
+order, makes its crop tasks and dispatches cls + rec.  The det forward
+(per chunk key) and each fused cls + rec bucket run as one captured CUDA
+graph each (``pipeline.graphs``, the counterpart of ``_build_jits``;
+``compile_count`` counts them).  Crops accumulate across chunks and, in
+``stream``, across batches, keyed by channel count: chunks of other upload
+shapes meet in a device edge pad + concat (``_pad_concat``).
 
 Spans (``utils.timing.StageTimers``, one per call; ``retto.<name> sid=...``
 ranges on a profiler's timeline).  The calling thread's follow each other
 and together cover the call: ``decode``, then per chunk ``upload_wait``,
-``mask_fetch``, ``contours`` and ``score``, per accumulator flush
-``lock_wait``, ``flush`` (pad + concat, the crops' buckets) and one
-``clsrec_dispatch`` a bucket, then ``clsrec_wait`` and ``texts`` per
-handle and ``assemble``.  The upload thread's ``upload`` (twice a chunk:
-the stacking, then the dispatch under the lock, its wait excluded) and
-``lock_wait``, and a fetch thread's ``fetch`` come back with their results
-and the calling thread merges them.  On a card, a pair of
+``mask_fetch``, ``contours_wait`` (the wait for the chunk's boxes) and
+``score``, per accumulator flush ``lock_wait``, ``flush`` (pad + concat,
+the crops' buckets) and one ``clsrec_dispatch`` a bucket, then
+``clsrec_wait`` and ``texts`` per handle and ``assemble``.  The upload
+thread's ``upload`` (twice a chunk: the stacking, then the dispatch under
+the lock, its wait excluded) and ``lock_wait``, a fetch thread's ``fetch``
+and a post-pool thread's ``contours`` (one an image) come back with their
+results and the calling thread merges them.  On a card, a pair of
 CUDA timing events around each det and cls + rec replay gives
 ``det_device`` and ``clsrec_device``, read once the copies recorded behind
 them have completed.  ``last_stats`` is the call's counters beside
@@ -71,6 +75,9 @@ the calling thread take turns where XLA dispatches from both at once; the
 uploads ride on that stream too, not on a stream of their own.  The lock
 is the owning session's dispatch lock (``lock=``), which its staged
 ``TorchEngine`` holds around every forward too, its replicas' included.
+The det postprocess runs an image a task on the post pool as each chunk's
+maps land, where the JAX pipeline runs it a chunk a call on the calling
+thread; each image's boxes are the same bytes either way.
 
 Precision (stated here because a device changes it): contractions run in
 the det model's compute dtype (bf16 for the shipped checkpoints); the BGR
@@ -87,10 +94,11 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -136,6 +144,13 @@ _INV255 = float(np.float32(1.0 / 255.0))
 # host seconds in every call's last_stats, 0.0 where the span did not run
 _STAGE_KEYS = ("t_decode", "t_upload_wait", "t_mask_fetch", "t_contours", "t_score",
                "t_clsrec_fetch")
+
+
+def _post_workers(det_chunk: int) -> int:
+    """The post pool's width: a thread per image of a det chunk, within the
+    CPUs this process may run on less three (the calling thread, the upload
+    thread and a fetch thread)."""
+    return min(det_chunk, max(1, len(os.sched_getaffinity(0)) - 3))
 
 
 def _bilinear_matrix(
@@ -399,6 +414,7 @@ class DevicePipeline:
         self._lock = lock if lock is not None else threading.RLock()
         self._upload_pool = ThreadPoolExecutor(max_workers=1)
         self._fetch_pool = ThreadPoolExecutor(max_workers=2)
+        self._post_pool = ThreadPoolExecutor(max_workers=_post_workers(config.buckets.det_chunk))
         self._sid = 0  # monotone _prepare state counter (stream keys)
 
     # ------------------------------------------------------------------ #
@@ -620,6 +636,7 @@ class DevicePipeline:
         pipeline cannot run (device_pipeline.py:688-693)."""
         self._upload_pool.shutdown(wait=True)
         self._fetch_pool.shutdown(wait=True)
+        self._post_pool.shutdown(wait=True)
 
     def __enter__(self) -> "DevicePipeline":
         return self
@@ -884,15 +901,27 @@ class DevicePipeline:
             rgb = {r.device: torch.cat([x.to(r.device) for x in rgbs]) if len(rgbs) > 1
                    else rgbs[0] for r in self._replicas}
             vs = {r.device: self._put(valids_src, r) for r in self._replicas}
-        fetch_fut = self._fetch_pool.submit(self._fetch_det, pending, sid, ci)
+        fetch_fut = self._fetch_pool.submit(self._fetch_det, pending, sid, ci, chunk.key, imgs)
         return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np), tm
 
-    def _fetch_det(self, pending: list, sid: int, ci: int):
+    def _fetch_det(self, pending: list, sid: int, ci: int, key: tuple = (),
+                   imgs: Sequence[_Img] = ()):
         """Runs on a fetch thread: complete a chunk's det maps (the span
-        ``fetch``, and ``det_device`` on a card); returns them and the
-        spans."""
+        ``fetch``, and ``det_device`` on a card) and hand the postprocess
+        of ``imgs``, the chunk's images in row order, to the post pool;
+        returns the maps, the spans and the images' futures, unjoined."""
         tm = StageTimers()
-        return self._host(pending, tm, "fetch", "det_device", sid=sid, chunk=ci), tm
+        maps = self._host(pending, tm, "fetch", "det_device", sid=sid, chunk=ci)
+        return maps, tm, self._post_chunk(self._post_pool, key, imgs, *maps, sid, ci)
+
+    def _post_chunk(self, pool: ThreadPoolExecutor, key: tuple, imgs: Sequence[_Img],
+                    packed_np: np.ndarray, prob_np: np.ndarray, sid: int,
+                    ci: int) -> list[Future]:
+        """Submit one ``_contours`` task an image of the chunk ``key`` to
+        ``pool``, row k with ``imgs[k]``; each future gives that image's
+        boxes, scores and span."""
+        return [pool.submit(self._contours, key, im, packed_np[k:k + 1], prob_np[k:k + 1],
+                            sid, ci, k) for k, im in enumerate(imgs)]
 
     def _prepare(self, inputs: Sequence[bytes | np.ndarray]) -> dict:
         """Decode every input and hand each (upload shape, det bucket,
@@ -993,8 +1022,8 @@ class DevicePipeline:
     @torch.inference_mode()
     def _finish_det(self, state: dict, acc: dict, handles: list,
                     stage_callback=None) -> None:
-        """Per chunk: wait for its upload and its det maps, contours +
-        scoring + finalize on the host in one C++ call, crop tasks.  Crops
+        """Per chunk: wait for its upload, its det maps and its images'
+        postprocess (run on the post pool), then its crop tasks.  Crops
         accumulate by channel count across chunks (and, in ``stream``,
         across batches: ``acc`` and ``handles`` are the caller's) and
         dispatch in buckets of up to 64 (device_pipeline.py:1020-1152)."""
@@ -1008,11 +1037,14 @@ class DevicePipeline:
             tm.merge(up_tm)
             stats["bytes_up"] += bytes_up
             with tm.time("mask_fetch", sid=sid, chunk=ci):
-                (packed_np, prob_np), fetch_tm = fetch_fut.result()
+                (packed_np, prob_np), fetch_tm, post_futs = fetch_fut.result()
             tm.merge(fetch_tm)
             stats["bytes_down"] += int(packed_np.nbytes) + int(prob_np.nbytes)
-            with tm.time("contours", sid=sid, chunk=ci):
-                self._contours(imgs, ch, packed_np, prob_np)
+            with tm.time("contours_wait", sid=sid, chunk=ci):
+                posts = [f.result() for f in post_futs]
+            for i, (boxes, scores, post_tm) in zip(ch.idxs, posts):
+                imgs[i].boxes, imgs[i].scores = boxes, scores
+                tm.merge(post_tm)
             with tm.time("score", sid=sid, chunk=ci):
                 for i in ch.idxs:
                     im = imgs[i]
@@ -1050,49 +1082,44 @@ class DevicePipeline:
                 if len(a["crops"]) >= 64:
                     self._flush_acc(acc, key, handles, tm, sid)
 
-    def _contours(self, imgs: list[_Img], ch: _Chunk, packed_np: np.ndarray,
-                  prob_np: np.ndarray) -> None:
-        """A chunk's det postprocess: contours, scoring and finalize in one
-        C++ call (``rt_det_chunk``), else numpy per image; sets each
-        image's boxes and scores."""
+    def _contours(self, key: tuple, im: _Img, packed: np.ndarray, prob: np.ndarray,
+                  sid: int, ci: int, row: int) -> tuple[np.ndarray, np.ndarray, StageTimers]:
+        """One image's det postprocess, on a post-pool thread: contours,
+        scoring and finalize in one C++ call (``rt_det_chunk`` over its
+        row of the chunk ``key``'s maps), else numpy; returns its boxes,
+        scores and span ``contours``."""
         cfg = self.cfg
         s = self._det_stride
-        mh_full, mw_full = ch.key[2] // s, ch.key[3] // s
-        row_packed = packed_np.shape[1] != mh_full  # kernel layout
+        mh_full, mw_full = key[2] // s, key[3] // s
+        row_packed = packed.shape[1] != mh_full  # kernel layout
         min_sside = max(1, cfg.det.min_mini_box_size // s)
         from ..native import det_chunk_native
 
-        nb = len(ch.idxs)
-        outs = det_chunk_native(
-            packed_np[:nb], row_packed, prob_np[:nb],
-            [(imgs[i].rh // s, imgs[i].rw // s) for i in ch.idxs], s,
-            [(imgs[i].rh, imgs[i].rw) for i in ch.idxs],
-            [(imgs[i].ah, imgs[i].aw) for i in ch.idxs],
-            min_sside, cfg.det.max_candidates, cfg.det.box_thresh,
-            cfg.det.unclip_ratio, cfg.det.min_mini_box_size,
-        )
-        if outs is not None:
-            for i, (bx, sc) in zip(ch.idxs, outs):
-                imgs[i].boxes, imgs[i].scores = bx, sc
-        else:  # no compiler: numpy fallback per image
-            import dataclasses
+        tm = StageTimers()
+        with tm.time("contours", sid=sid, chunk=ci, row=row):
+            outs = det_chunk_native(
+                packed, row_packed, prob, [(im.rh // s, im.rw // s)], s,
+                [(im.rh, im.rw)], [(im.ah, im.aw)],
+                min_sside, cfg.det.max_candidates, cfg.det.box_thresh,
+                cfg.det.unclip_ratio, cfg.det.min_mini_box_size,
+            )
+            if outs is not None:
+                boxes, scores = outs[0]
+            else:  # no compiler: numpy
+                import dataclasses
 
-            cfg_s = dataclasses.replace(cfg.det, min_mini_box_size=min_sside)
-            for i in ch.idxs:
-                im = imgs[i]
                 if row_packed:
-                    mask = unpack_rows(packed_np[im.row], im.rh // s, im.rw // s)
+                    mask = unpack_rows(packed[0], im.rh // s, im.rw // s)
                 else:
-                    mask = unpack_mask(packed_np[im.row], mw_full)[
-                        : im.rh // s, : im.rw // s
-                    ]
-                cands = det_candidates(mask, cfg_s)
+                    mask = unpack_mask(packed[0], mw_full)[: im.rh // s, : im.rw // s]
+                cands = det_candidates(
+                    mask, dataclasses.replace(cfg.det, min_mini_box_size=min_sside))
                 if s > 1 and len(cands):
                     cands = cands * float(s)
-                scores_i = _score_candidates(prob_np[im.row], cands)
-                im.boxes, im.scores = det_finalize(
-                    cands, scores_i, cfg.det, im.rh, im.rw, im.ah, im.aw
-                )
+                boxes, scores = det_finalize(
+                    cands, _score_candidates(prob[0], cands), cfg.det, im.rh, im.rw,
+                    im.ah, im.aw)
+        return boxes, scores, tm
 
     def _fetch_texts(self, handles: list, stats: dict, texts: dict, tm: StageTimers,
                      sid: int) -> None:

@@ -25,13 +25,14 @@ from test_torch_pipeline_stream import MIXED_SIZES, _batches
 from test_torch_pipeline_tiny import _configs, tiny_weights  # noqa: F401 (fixture)
 
 # the calling thread's spans, one after another over a run_many call
-CALLING = ("decode", "upload_wait", "mask_fetch", "contours", "score", "flush",
+CALLING = ("decode", "upload_wait", "mask_fetch", "contours_wait", "score", "flush",
            "clsrec_dispatch", "clsrec_wait", "texts", "assemble")
-# spans of the other threads, merged into the call's
-WORKERS = ("upload", "fetch", "lock_wait")
+# spans of the other threads (the post pool's contours, one an image), merged
+# into the call's
+WORKERS = ("upload", "fetch", "lock_wait", "contours")
 NEW_READERS = ("host.upload_ms_per_page", "host.lock_wait_ms_per_page",
                "host.device_wait_ms_per_page", "host.flush_ms_per_page",
-               "host.clsrec_dispatch_ms_per_page")
+               "host.clsrec_dispatch_ms_per_page", "host.contours_wait_ms_per_page")
 DEVICE_READERS = ("device.det_ms_per_page", "device.clsrec_ms_per_page")
 
 
@@ -68,10 +69,12 @@ def test_old_keys_keep_their_meaning(tdp):
         assert k in st, k
     assert st["images"] == 3
     assert st["crops"] == sum(len(r.det_result) for r in out)
-    # one decode span a call; the chunk spans once a chunk
+    # one decode span a call; the chunk spans once a chunk; contours once a
+    # decoded image, on the post pool
     assert st["n_decode"] == 1
-    for name in ("upload_wait", "mask_fetch", "contours", "score", "fetch"):
+    for name in ("upload_wait", "mask_fetch", "contours_wait", "score", "fetch"):
         assert st[f"n_{name}"] == st["chunks"], name
+    assert st["n_contours"] == st["images"]
     # the upload thread: stacking, then the dispatch under the lock
     assert st["n_upload"] == 2 * st["chunks"]
     # a det dispatch a chunk, a cls + rec dispatch a bucket
@@ -132,10 +135,13 @@ def test_profile_trace_records_spans_of_every_thread(tdp, tmp_path):
         if name.startswith("retto."):
             tids.setdefault(name.split(" ")[0], set()).add(e["tid"])
             assert f"sid={sid}" in name.split(" ")[1:], name
-    assert {"retto.decode", "retto.upload", "retto.fetch", "retto.assemble"} <= set(tids)
+    assert {"retto.decode", "retto.upload", "retto.fetch", "retto.assemble",
+            "retto.contours", "retto.contours_wait"} <= set(tids)
     assert tids["retto.decode"].isdisjoint(tids["retto.upload"])
     assert tids["retto.upload"].isdisjoint(tids["retto.fetch"])
-    assert tids["retto.decode"] == tids["retto.assemble"]
+    assert tids["retto.decode"] == tids["retto.assemble"] == tids["retto.contours_wait"]
+    assert tids["retto.contours"].isdisjoint(
+        tids["retto.decode"] | tids["retto.upload"] | tids["retto.fetch"])
 
 
 def test_stage_timers_add_merge_and_flatten():
@@ -173,6 +179,8 @@ def test_new_readers_read_a_cpu_run(tdp):
     assert bench_run.read_metric("host.device_wait_ms_per_page", ctx) == pytest.approx(
         (stats["t_upload_wait"] + stats["t_mask_fetch"] + stats["t_clsrec_wait"])
         / pages * 1e3)
+    assert bench_run.read_metric("host.contours_wait_ms_per_page", ctx) == pytest.approx(
+        stats["t_contours_wait"] / pages * 1e3)
     for name in DEVICE_READERS:
         assert bench_run.read_metric(name, ctx) is None, name
     # a program without the spans: every new reader finds nothing

@@ -20,7 +20,7 @@ and prints one JSON line:
   divided by the calls; ``calling_cover`` is the
   calling thread's spans over ``t_total``, without and with ``t_lock_wait``
   (which sums every thread's);
-* from the last traced pass, by thread (calling, upload, fetch): each
+* from the last traced pass, by thread (calling, upload, fetch, post): each
   ``retto.*`` span's ms a call; ``calling_cover_traced``, the union of the
   calling thread's spans over its calls; the upload thread's ``upload`` and
   ``lock_wait`` shares of the pass's wall time;
@@ -82,6 +82,7 @@ def analyse(trace: list[dict], calls: int) -> dict:
     caller = next(iter(by_name.get("decode", {None})))
     uploader = next(iter(by_name.get("upload", {None}) - {caller}))
     role = {t: "fetch" for t in by_name.get("fetch", set())}
+    role.update({t: "post" for t in by_name.get("contours", set())})
     role.update({caller: "calling", uploader: "upload"})
     per: dict[str, dict[str, float]] = {}
     ranges: dict[str, list] = {"calling": [], "upload": []}
@@ -221,7 +222,7 @@ def main(argv: list[str] | None = None) -> None:
     calls = len(batches)
     last = {k: v * 1e3 / (2 * calls) for k, v in sorted(stats.items()) if k.startswith("t_")}
     counts = {k: v / (2 * calls) for k, v in sorted(stats.items()) if k.startswith("n_")}
-    calling = ("decode", "upload_wait", "mask_fetch", "contours", "score", "flush",
+    calling = ("decode", "upload_wait", "mask_fetch", "contours_wait", "score", "flush",
                "clsrec_dispatch", "clsrec_wait", "texts", "assemble")
     own = sum(last.get(f"t_{n}", 0.0) for n in calling)
     out = {"workload": args.workload, "seed": args.seed,
