@@ -4,7 +4,10 @@ Port copy of ``retto_tpu/native/__init__.py``: the port imports nothing of the J
 package, so it keeps its own copy of this host-only module.  The port adds
 ``conv_xla_native``, ``dot_xla_native`` and ``rsqrt_xla_native``
 (``conv_xla.cpp``): the convolution, the dot and the rsqrt in XLA:CPU's
-arithmetic, which ``models.common`` uses on CPU tensors.
+arithmetic, which ``models.common`` uses on CPU tensors; and
+``gray_batch_native`` and ``pack_chunk_native``: the gray probe of many
+pages, and a det chunk's stacked upload planes, each one call threaded
+over the pages (``DevicePipeline._prepare``, ``_upload_and_det``).
 
 Compiled lazily with g++ at first use (no pybind11 in this environment;
 plain C ABI + ctypes).  Falls back silently to the NumPy implementation
@@ -21,6 +24,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -154,6 +158,20 @@ def _open() -> ctypes.CDLL | None:
         lib.rt_pack_auto.restype = ctypes.c_int
         lib.rt_pack_auto.argtypes = [
             u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            u8p, u8p,
+        ]
+    if hasattr(lib, "rt_pack_chunk"):
+        lib.rt_gray_batch.restype = ctypes.c_int
+        lib.rt_gray_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.rt_pack_chunk.restype = ctypes.c_int
+        lib.rt_pack_chunk.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),  # hs, ws
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, nb, hp, wp
+            ctypes.c_int, ctypes.c_int,  # yuv, threads
             u8p, u8p,
         ]
     return lib
@@ -400,6 +418,67 @@ def pack_auto_native(
     if rc < 0:
         return None
     return bool(rc), y, uv
+
+
+def _rgb_pages(imgs) -> tuple[list[np.ndarray], Any] | None:
+    """Contiguous [h, w, 3] u8 pages and a C array of their addresses (the
+    list keeps the pages alive while the array is in use); None if a page
+    has another shape."""
+    pages = [np.ascontiguousarray(a, np.uint8) for a in imgs]
+    if any(a.ndim != 3 or a.shape[2] != 3 for a in pages):
+        return None
+    return pages, (ctypes.c_void_p * len(pages))(*[a.ctypes.data for a in pages])
+
+
+def gray_batch_native(imgs: Sequence[np.ndarray], threads: int) -> list[bool] | None:
+    """R==G==B for each interleaved HWC u8 page (``is_gray_native``, the
+    format ``pack_auto_native`` reports), in one GIL-released call over
+    ``threads`` native threads.  ``[]`` for no pages; None without a
+    compiler or for a page that is not [h, w, 3]."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "rt_gray_batch"):
+        return None
+    if not imgs:
+        return []
+    got = _rgb_pages(imgs)
+    if got is None:
+        return None
+    pages, ptrs = got
+    n_px = np.asarray([a.shape[0] * a.shape[1] for a in pages], np.int64)
+    out = np.zeros(len(pages), np.int32)
+    lib.rt_gray_batch(ptrs, n_px.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                      len(pages), int(threads),
+                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return [bool(v) for v in out]
+
+
+def pack_chunk_native(
+    imgs: Sequence[np.ndarray], hp: int, wp: int, nb: int, gray: bool, threads: int,
+) -> tuple[np.ndarray, ...] | None:
+    """A det chunk's stacked upload planes in one GIL-released call over
+    ``threads`` native threads: page k edge-padded to (hp, wp) in row k,
+    rows ``len(imgs)``..``nb - 1`` zero.  ``gray``: ``(y [nb, hp, wp],)``,
+    each row ``pack_gray_native``'s plane; else ``(y, uv [nb, hp/2, wp/2,
+    2])``, each row ``pack_auto_native``'s.  None without a compiler, for
+    odd hp/wp, or for a page that is not [h, w, 3] within (hp, wp)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "rt_pack_chunk"):
+        return None
+    got = _rgb_pages(imgs)
+    if (got is None or hp % 2 or wp % 2 or not 0 < len(imgs) <= nb
+            or any(a.shape[0] > hp or a.shape[1] > wp for a in got[0])):
+        return None
+    pages, ptrs = got
+    hs = np.asarray([a.shape[0] for a in pages], np.int32)
+    ws = np.asarray([a.shape[1] for a in pages], np.int32)
+    y = np.empty((nb, hp, wp), np.uint8)
+    uv = None if gray else np.empty((nb, hp // 2, wp // 2, 2), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.rt_pack_chunk(ptrs, hs.ctypes.data_as(i32p), ws.ctypes.data_as(i32p),
+                      len(pages), nb, hp, wp, int(not gray), int(threads),
+                      y.ctypes.data_as(u8p), None if uv is None else uv.ctypes.data_as(u8p))
+    return (y,) if uv is None else (y, uv)
 
 
 def is_gray_native(img: np.ndarray) -> bool | None:

@@ -11,9 +11,11 @@
 // API: one fused entry point, rt_det_postprocess (see bottom).
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -393,6 +395,28 @@ void find_contours(const uint8_t* mask, int h, int w, Contours& out) {
   }
 }
 
+// fn(k) for every k in [0, n) on up to `threads` threads, the caller's
+// among them; each thread takes the next k from a shared counter, so a
+// page that ends early (a colour page's probe) frees its thread for the
+// next one.
+template <class F>
+void parallel_for(int n, int threads, F fn) {
+  const int t = std::max(1, std::min(threads, n));
+  if (t == 1) {
+    for (int k = 0; k < n; k++) fn(k);
+    return;
+  }
+  std::atomic<int> next{0};
+  auto work = [&] {
+    for (int k; (k = next.fetch_add(1)) < n;) fn(k);
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(t - 1);
+  for (int i = 1; i < t; i++) pool.emplace_back(work);
+  work();
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -730,21 +754,18 @@ int rt_det_chunk(const uint8_t* packed, int b, int ph, int pw, int row_packed,
 
 // One-pass grayscale test for an interleaved RGB u8 image (R==G==B for
 // every pixel).  The numpy equivalent costs two full-image comparison
-// passes under the GIL; this is the per-image transfer-format probe in
-// DevicePipeline._decode_one.
+// passes under the GIL; this is the per-image transfer-format probe of the
+// DevicePipeline (rt_gray_batch, DevicePipeline._decode_one's fallback).
+// Blocks of 4096 pixels OR their channel differences in a loop without
+// branches (it vectorizes) and stop at the first block that differs.
 int rt_is_gray(const uint8_t* rgb, int64_t n_px) {
-  int64_t i = 0;
-  for (; i + 4 <= n_px; i += 4) {  // modest unroll; -O3 vectorizes
-    const uint8_t* p = rgb + i * 3;
-    uint8_t d = (uint8_t)((p[0] ^ p[1]) | (p[1] ^ p[2]) |
-                          (p[3] ^ p[4]) | (p[4] ^ p[5]) |
-                          (p[6] ^ p[7]) | (p[7] ^ p[8]) |
-                          (p[9] ^ p[10]) | (p[10] ^ p[11]));
+  for (int64_t i0 = 0; i0 < n_px; i0 += 4096) {
+    const uint8_t* p = rgb + i0 * 3;
+    const int64_t m = std::min<int64_t>(4096, n_px - i0) * 3;
+    uint8_t d = 0;
+    for (int64_t i = 0; i < m; i += 3)
+      d |= (uint8_t)((p[i] ^ p[i + 1]) | (p[i + 1] ^ p[i + 2]));
     if (d) return 0;
-  }
-  for (; i < n_px; i++) {
-    const uint8_t* p = rgb + i * 3;
-    if ((p[0] ^ p[1]) | (p[1] ^ p[2])) return 0;
   }
   return 1;
 }
@@ -800,15 +821,20 @@ int rt_pack_yuv420(const uint8_t* rgb, int h, int w, int hp, int wp,
 
 
 // Fused edge-replicate pad + channel-0 extract for truly-grayscale inputs
-// (1 B/px lossless transfer).  rgb: [h, w, 3]; out: [hp, wp].
+// (1 B/px lossless transfer).  rgb: [h, w, 3]; out: [hp, wp].  Each valid
+// row is copied in a loop without clamps (it vectorizes), its padding is
+// one memset, and the padding rows copy the last valid row.
 int rt_pack_gray(const uint8_t* rgb, int h, int w, int hp, int wp,
                  uint8_t* out) {
-  for (int yy = 0; yy < hp; yy++) {
-    int sy = std::min(yy, h - 1);
-    const uint8_t* row = rgb + (size_t)sy * w * 3;
+  const int vh = std::min(h, hp), vw = std::min(w, wp);
+  for (int yy = 0; yy < vh; yy++) {
+    const uint8_t* row = rgb + (size_t)yy * w * 3;
     uint8_t* orow = out + (size_t)yy * wp;
-    for (int x = 0; x < wp; x++) orow[x] = row[(size_t)std::min(x, w - 1) * 3];
+    for (int x = 0; x < vw; x++) orow[x] = row[(size_t)x * 3];
+    std::memset(orow + vw, orow[vw - 1], wp - vw);
   }
+  for (int yy = vh; yy < hp; yy++)
+    std::memcpy(out + (size_t)yy * wp, out + (size_t)(vh - 1) * wp, wp);
   return 0;
 }
 
@@ -929,6 +955,39 @@ int rt_pack_auto(const uint8_t* rgb, int h, int w, int hp, int wp,
     std::memcpy(uv_out + (size_t)cy * wp2 * 2,
                 uv_out + (size_t)(cy0 - 1) * wp2 * 2, (size_t)wp2 * 2);
   return diff == 0 ? 1 : 0;
+}
+
+// The transfer-format probe of a whole call: out[k] = rt_is_gray(rgbs[k],
+// n_px[k]), the answer rt_pack_auto's return code gives, for n pages on up
+// to `threads` threads, in one call (DevicePipeline._prepare).
+int rt_gray_batch(const uint8_t* const* rgbs, const int64_t* n_px, int n,
+                  int threads, int32_t* out) {
+  parallel_for(n, threads, [&](int k) { out[k] = rt_is_gray(rgbs[k], n_px[k]); });
+  return 0;
+}
+
+// A det chunk's stacked upload planes in one call, page k into row k, on up
+// to `threads` threads (DevicePipeline._upload_and_det).  rgbs[k]: [hs[k],
+// ws[k], 3], all within [hp, wp]; y_out: [nb, hp, wp]; uv_out: [nb, hp/2,
+// wp/2, 2] when yuv, else unused.  A gray chunk writes rt_pack_gray's
+// plane, which for R == G == B is rt_pack_auto's Y byte for byte; a colour
+// chunk writes rt_pack_auto's Y and UV.  Rows n..nb-1 are zero.  -1 on odd
+// hp/wp.
+int rt_pack_chunk(const uint8_t* const* rgbs, const int32_t* hs,
+                  const int32_t* ws, int n, int nb, int hp, int wp, int yuv,
+                  int threads, uint8_t* y_out, uint8_t* uv_out) {
+  if (hp % 2 || wp % 2) return -1;
+  const size_t ysz = (size_t)hp * wp, uvsz = yuv ? ysz / 2 : 0;
+  parallel_for(n, threads, [&](int k) {
+    if (yuv)
+      rt_pack_auto(rgbs[k], hs[k], ws[k], hp, wp, y_out + k * ysz,
+                   uv_out + k * uvsz);
+    else
+      rt_pack_gray(rgbs[k], hs[k], ws[k], hp, wp, y_out + k * ysz);
+  });
+  std::memset(y_out + n * ysz, 0, (nb - n) * ysz);
+  if (yuv) std::memset(uv_out + n * uvsz, 0, (nb - n) * uvsz);
+  return 0;
 }
 
 }  // extern "C"

@@ -10,16 +10,21 @@ probabilities and CTC indices/keep-masks/scores, and runs the sequential
 tail: contours, min-area rects and unclip (``native`` ``rt_det_chunk``),
 and string assembly.
 
-Scheduling, as in the JAX pipeline but for the post pool: a call is split
-into det chunks of ``BucketConfig.det_chunk`` images.  An upload thread
-stacks each chunk into pinned host buffers, copies it to the card without
+Scheduling, as in the JAX pipeline but for the pack and the post pool: a
+call is split into det chunks of ``BucketConfig.det_chunk`` images.  The
+calling thread decodes and sizes each page and reads the pages' formats
+(gray or YUV 4:2:0) a det chunk's worth at a time, in one native probe
+threaded over them.  An upload thread packs each chunk's pages into its
+stacked planes in one native call threaded over them (``_pack_chunk``;
+page by page where the library cannot: the ``rgb`` transfer, odd extents,
+no library), copies them to the card through pinned host buffers without
 blocking and dispatches its det forward; the copies of the det maps to the
 host are enqueued right behind it and completed on one of two fetch
 threads, which then hands each image of the chunk to the post pool
-(``_post_workers`` threads): contours, scoring and finalize in one
+(``_host_threads`` threads): contours, scoring and finalize in one
 GIL-released C++ call an image, as soon as the maps land.  Meanwhile the
-calling thread decodes later pages, then takes each chunk's boxes in chunk
-order, makes its crop tasks and dispatches cls + rec.  The det forward
+calling thread takes each chunk's boxes in chunk order, makes its crop
+tasks and dispatches cls + rec.  The det forward
 (per chunk key) and each fused cls + rec bucket run as one captured CUDA
 graph each (``pipeline.graphs``, the counterpart of ``_build_jits``;
 ``compile_count`` counts them).  Crops accumulate across chunks and, in
@@ -28,20 +33,23 @@ shapes meet in a device edge pad + concat (``_pad_concat``).
 
 Spans (``utils.timing.StageTimers``, one per call; ``retto.<name> sid=...``
 ranges on a profiler's timeline).  The calling thread's follow each other
-and together cover the call: ``decode``, then per chunk ``upload_wait``,
-``mask_fetch``, ``contours_wait`` (the wait for the chunk's boxes) and
+and together cover the call: ``decode`` (and inside it ``gray_probe``,
+the format probe, once a det chunk of pages), then per chunk
+``upload_wait``, ``mask_fetch``, ``contours_wait`` (the wait for the chunk's boxes) and
 ``score``, per accumulator flush ``lock_wait``, ``flush`` (pad + concat,
 the crops' buckets) and one ``clsrec_dispatch`` a bucket, then
 ``clsrec_wait`` and ``texts`` per handle and ``assemble``.  The upload
-thread's ``upload`` (twice a chunk: the stacking, then the dispatch under
-the lock, its wait excluded) and ``lock_wait``, a fetch thread's ``fetch``
+thread's ``upload`` (twice a chunk: the planes, with the chunk's ``pack``
+inside it, then the dispatch under the lock, its wait excluded)
+and ``lock_wait``, a fetch thread's ``fetch``
 and a post-pool thread's ``contours`` (one an image) come back with their
 results and the calling thread merges them.  On a card, a pair of
 CUDA timing events around each det and cls + rec replay gives
 ``det_device`` and ``clsrec_device``, read once the copies recorded behind
 them have completed.  ``last_stats`` is the call's counters beside
 ``t_<span>`` seconds and ``n_<span>`` counts; ``t_clsrec_fetch`` is
-``t_clsrec_wait + t_texts``.
+``t_clsrec_wait + t_texts``, and ``pages_packed_native`` counts the
+pages the chunk pack wrote.
 
 The det model is the port's ``DetModel`` (NHWC in its compute dtype,
 stride-2 logits, pool 2) or any other module with the engine contract, an
@@ -146,11 +154,35 @@ _STAGE_KEYS = ("t_decode", "t_upload_wait", "t_mask_fetch", "t_contours", "t_sco
                "t_clsrec_fetch")
 
 
-def _post_workers(det_chunk: int) -> int:
-    """The post pool's width: a thread per image of a det chunk, within the
-    CPUs this process may run on less three (the calling thread, the upload
-    thread and a fetch thread)."""
-    return min(det_chunk, max(1, len(os.sched_getaffinity(0)) - 3))
+def _host_threads(pages: int) -> int:
+    """The width of host work spread over pages (the post pool: a det
+    chunk's images; the native gray probe and chunk pack): a thread a page,
+    within the CPUs this process may run on less three (the calling thread,
+    the upload thread and a fetch thread)."""
+    return min(pages, max(1, len(os.sched_getaffinity(0)) - 3))
+
+
+def _is_gray(px: np.ndarray) -> bool:
+    """R == G == B over an [h, w, 3] page: one native pass, else numpy."""
+    from ..native import is_gray_native
+
+    gray = is_gray_native(px)
+    if gray is None:
+        gray = bool((px[:, :, 0] == px[:, :, 1]).all() and (px[:, :, 1] == px[:, :, 2]).all())
+    return gray
+
+
+def _stack(pixels: Sequence[tuple[np.ndarray, ...]], nb: int) -> list[np.ndarray]:
+    """Pages packed one by one (``_pack_one``) stacked into a chunk's planes,
+    rows past the pages zero."""
+    planes = []
+    for p in range(len(pixels[0])):
+        first = pixels[0][p]
+        buf = np.zeros((nb, *first.shape), first.dtype)
+        for k, px in enumerate(pixels):
+            buf[k] = px[p]
+        planes.append(buf)
+    return planes
 
 
 def _bilinear_matrix(
@@ -230,6 +262,8 @@ class _Img:
     ori_w: int
     rh: int  # det input size (resize_either)
     rw: int
+    hp: int = 0  # upload extents: (ah, aw) padded to upload_pad_to
+    wp: int = 0
     fmt: str = "rgb"
     row: int = 0  # row within the chunk's stacked device tensor
     boxes: np.ndarray | None = None
@@ -241,9 +275,12 @@ class _Img:
 class _Chunk:
     key: tuple  # (upload Hp, Wp, det dh, dw, plane format)
     idxs: list[int]
-    upload_fut: Any = None  # -> (fetch future, rgb, valids_src, bytes_up, timers)
+    # -> (fetch future, rgb, valids_src, bytes_up, pages packed natively, timers)
+    upload_fut: Any = None
     rgb: Any = None  # the chunk's image tensor on each 'data' device
     valids_src: Any = None  # and its valid extents, likewise
+    # set once the upload thread has read the pages' pixels into the planes
+    packed: threading.Event = field(default_factory=threading.Event)
 
 
 def _score_candidates(prob_small: np.ndarray, quads: np.ndarray) -> np.ndarray:
@@ -414,7 +451,7 @@ class DevicePipeline:
         self._lock = lock if lock is not None else threading.RLock()
         self._upload_pool = ThreadPoolExecutor(max_workers=1)
         self._fetch_pool = ThreadPoolExecutor(max_workers=2)
-        self._post_pool = ThreadPoolExecutor(max_workers=_post_workers(config.buckets.det_chunk))
+        self._post_pool = ThreadPoolExecutor(max_workers=_host_threads(config.buckets.det_chunk))
         self._sid = 0  # monotone _prepare state counter (stream keys)
 
     # ------------------------------------------------------------------ #
@@ -678,20 +715,29 @@ class DevicePipeline:
         uploads run on a prep thread while batch i's postprocess tail
         completes, and batch i's results are yielded only after batch i+1's
         det phase, so i's underfull rec buckets absorb i+1's first crops.
-        Results arrive in order, one batch behind the det work."""
+        Results arrive in order, one batch behind the det work.  The
+        iterator is advanced only once the upload thread has read the
+        previous batch's pixels, so it may refill the arrays it yielded."""
         prep_pool = ThreadPoolExecutor(max_workers=1)
+
+        def prepare(batch):
+            state = self._prepare(batch)
+            for ch in state["chunks"]:
+                ch.packed.wait()
+            return state
+
         acc: dict[tuple, dict] = {}
         handles: list[tuple[list[tuple], Any]] = []
         texts: dict[tuple, RecText] = {}
         try:
             it = iter(batches)
             try:
-                state = self._prepare(next(it))
+                state = prepare(next(it))
             except StopIteration:
                 return
             prev = None
             for nxt in it:
-                fut = prep_pool.submit(self._prepare, nxt)
+                fut = prep_pool.submit(prepare, nxt)
                 self._finish_det(state, acc, handles)
                 if prev is not None:
                     yield self._assemble(prev, acc, handles, texts)
@@ -705,8 +751,14 @@ class DevicePipeline:
 
     # ------------------------------------------------------------------ #
     def _decode_one(self, data: bytes | np.ndarray) -> tuple[_Img, tuple[np.ndarray, ...]]:
-        """Decode + session resize + pad-to-bucket + gray/YUV pack
-        (device_pipeline.py:702-777)."""
+        """Decode + session resize + pad-to-bucket + gray/YUV pack of one
+        page (device_pipeline.py:702-777)."""
+        im, px = self._geometry(data)
+        return im, self._pack_one(im, px)
+
+    def _geometry(self, data: bytes | np.ndarray) -> tuple[_Img, np.ndarray]:
+        """Decode + session resize, and the page's sizes (session, det
+        input, upload extents); the RGB pixels come back unpacked."""
         cfg = self.cfg
         bk = cfg.buckets
         img = ImageHelper(decode_image(data))
@@ -716,10 +768,14 @@ class DevicePipeline:
         rh, rw = det_input_dims(
             ah, aw, cfg.det.limit_type, cfg.det.limit_side_len, bk.det_max_side,
         )
-        im = _Img(ah, aw, ori_h, ori_w, rh, rw)
         hp = _bucket_up(ah, bk.upload_pad_to, 1 << 30)
         wp = _bucket_up(aw, bk.upload_pad_to, 1 << 30)
-        px = img.img
+        return _Img(ah, aw, ori_h, ori_w, rh, rw, hp, wp), img.img
+
+    def _pack_one(self, im: _Img, px: np.ndarray) -> tuple[np.ndarray, ...]:
+        """One page's padded upload planes, in the format its pixels allow
+        (``im.fmt``: gray, yuv420 or rgb)."""
+        hp, wp = im.hp, im.wp
 
         def pad(arr: np.ndarray) -> np.ndarray:
             # edge-replicate so 4:2:0 chroma never bleeds padding colors
@@ -731,12 +787,7 @@ class DevicePipeline:
             return np.pad(arr, width, mode="edge")
 
         if self.transfer == "yuv420":
-            from ..native import (
-                is_gray_native,
-                pack_auto_native,
-                pack_gray_native,
-                pack_yuv420_native,
-            )
+            from ..native import pack_auto_native, pack_gray_native, pack_yuv420_native
 
             auto = pack_auto_native(px, hp, wp)
             if auto is not None:
@@ -747,14 +798,8 @@ class DevicePipeline:
                 else:
                     im.fmt = "yuv420"
                     planes = (y_plane, uv_plane)
-            else:  # no compiler: two-pass numpy/C fallback
-                gray = is_gray_native(px)
-                if gray is None:
-                    gray = bool(
-                        (px[:, :, 0] == px[:, :, 1]).all()
-                        and (px[:, :, 1] == px[:, :, 2]).all()
-                    )
-                if gray:
+            else:  # no compiler, or odd extents: two-pass numpy/C fallback
+                if _is_gray(px):
                     im.fmt = "gray"
                     plane = pack_gray_native(px, hp, wp)
                     if plane is None:
@@ -769,7 +814,7 @@ class DevicePipeline:
         else:
             im.fmt = "rgb"
             planes = (pad(px),)
-        return im, planes
+        return planes
 
     @staticmethod
     def _put(arr: np.ndarray, rep: _Replica) -> torch.Tensor:
@@ -851,26 +896,43 @@ class DevicePipeline:
         end.record(stream)
         return out, (start, end, rep.marks)
 
+    def _pack_chunk(self, key: tuple, imgs: Sequence[_Img], srcs: Sequence[np.ndarray],
+                    nb: int) -> tuple[list[np.ndarray], int]:
+        """The chunk ``key``'s stacked planes from its pages' RGB pixels: a
+        gray or yuv420 chunk in one native call threaded over the pages
+        (``pack_chunk_native``), else (the ``rgb`` transfer, odd extents,
+        no library) page by page (``_pack_one``); returns them and the
+        pages the native call packed."""
+        from ..native import pack_chunk_native
+
+        hp, wp, _, _, fmt = key
+        if fmt != "rgb":
+            planes = pack_chunk_native(srcs, hp, wp, nb, fmt == "gray",
+                                       _host_threads(len(srcs)))
+            if planes is not None:
+                return list(planes), len(srcs)
+        return _stack([self._pack_one(im, px) for im, px in zip(imgs, srcs)], nb), 0
+
     @torch.inference_mode()
-    def _upload_and_det(self, chunk: _Chunk, imgs: list[_Img],
-                        pixels: list[tuple[np.ndarray, ...]], nb: int, sid: int, ci: int):
-        """Runs on the upload thread: stack the pre-padded planes; per
+    def _upload_and_det(self, chunk: _Chunk, imgs: list[_Img], srcs: list[np.ndarray],
+                        nb: int, sid: int, ci: int):
+        """Runs on the upload thread: pack the pages' RGB pixels into the
+        chunk's stacked planes (``_pack_chunk``, the span ``pack``); per
         'data' shard of the rows, upload, dispatch the det forward on the
         shard's device and enqueue its det maps' copies to the host; gather
         the image tensor whole onto every device; hand the copies'
         completion to a fetch thread (device_pipeline.py:791-840).
-        Counters and this thread's spans (``upload``, ``lock_wait``) are
-        returned, never added into the shared stats from this thread."""
+        Counters and this thread's spans (``upload``, ``pack``,
+        ``lock_wait``) are returned, never added into the shared stats from
+        this thread."""
         hp, wp, dh, dw, fmt = chunk.key
         tm = StageTimers()
         with tm.time("upload", sid=sid, chunk=ci):
-            planes_np = []
-            for p in range(len(pixels[0])):
-                first = pixels[0][p]
-                buf = np.zeros((nb, *first.shape), first.dtype)
-                for k, px in enumerate(pixels):
-                    buf[k] = px[p]
-                planes_np.append(buf)
+            try:
+                with tm.time("pack", sid=sid, chunk=ci):
+                    planes_np, packed_native = self._pack_chunk(chunk.key, imgs, srcs, nb)
+            finally:
+                chunk.packed.set()
             valids_src = np.ones((nb, 2), np.int32)
             valids_det = np.ones((nb, 2), np.int32)
             for k, im in enumerate(imgs):
@@ -902,7 +964,8 @@ class DevicePipeline:
                    else rgbs[0] for r in self._replicas}
             vs = {r.device: self._put(valids_src, r) for r in self._replicas}
         fetch_fut = self._fetch_pool.submit(self._fetch_det, pending, sid, ci, chunk.key, imgs)
-        return fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np), tm
+        return (fetch_fut, rgb, vs, sum(int(b.nbytes) for b in planes_np), packed_native,
+                tm)
 
     def _fetch_det(self, pending: list, sid: int, ci: int, key: tuple = (),
                    imgs: Sequence[_Img] = ()):
@@ -924,23 +987,33 @@ class DevicePipeline:
                             sid, ci, k) for k, im in enumerate(imgs)]
 
     def _prepare(self, inputs: Sequence[bytes | np.ndarray]) -> dict:
-        """Decode every input and hand each (upload shape, det bucket,
-        format) chunk to the upload thread the moment it fills
-        (device_pipeline.py:901-970)."""
+        """Decode and size every input and hand each (upload shape, det
+        bucket, format) chunk to the upload thread the moment it fills
+        (device_pipeline.py:901-970); the upload thread packs the pages'
+        pixels (``_pack_chunk``).  Under the ``yuv420`` transfer a page's
+        format (gray or yuv420) comes from one native probe threaded over
+        the pages awaiting it (the span ``gray_probe``; page by page
+        without the library), run each time they fill a det chunk and at
+        the end, so that a call's first chunk does not wait for its last
+        decode.  The chunks form in input order."""
+        from ..native import gray_batch_native
+
         cfg = self.cfg
         sid = self._sid
         self._sid += 1
         stats = {
-            "images": len(inputs), "crops": 0, "chunks": 0,
-            "bytes_up": 0, "bytes_down": 0, "dispatches": 0, "pad_concats": 0,
+            "images": len(inputs), "crops": 0, "chunks": 0, "bytes_up": 0,
+            "bytes_down": 0, "dispatches": 0, "pad_concats": 0, "pages_packed_native": 0,
         }
         tm = StageTimers()
         t0 = time.perf_counter()
         bk = cfg.buckets
         imgs: list[_Img | None] = []
-        pixels: list[tuple[np.ndarray, ...] | None] = []
+        srcs: list[np.ndarray | None] = []  # RGB pixels, packed on the upload thread
         pending: dict[tuple, list[int]] = {}
         chunks: list[_Chunk] = []
+        todo: list[int] = []  # pages awaiting the probe, in input order
+        placed = 0  # every page before this one is in its chunk
 
         def flush(key: tuple, idxs: list[int]) -> None:
             ch = _Chunk(key, idxs)
@@ -950,32 +1023,60 @@ class DevicePipeline:
             self.metrics.record_batch("det_batch", len(idxs), nb)
             stats["dispatches"] += 1
             ch.upload_fut = self._upload_pool.submit(
-                self._upload_and_det, ch, [imgs[i] for i in idxs],
-                [pixels[i] for i in idxs], nb, sid, len(chunks))
+                self._upload_and_det, ch, [imgs[i] for i in idxs], [srcs[i] for i in idxs],
+                nb, sid, len(chunks))
             chunks.append(ch)
+
+        def place() -> None:
+            # the pages into their chunks, in input order, up to the first
+            # page whose format the probe has not read yet
+            nonlocal placed
+            stop = todo[0] if todo else len(imgs)
+            for i in range(placed, stop):
+                im = imgs[i]
+                if im is None:
+                    continue
+                dh = _bucket_up(im.rh, bk.det_pad_to, bk.det_max_side)
+                dw = _bucket_up(im.rw, bk.det_pad_to, bk.det_max_side)
+                key = (im.hp, im.wp, dh, dw, im.fmt)
+                pending.setdefault(key, []).append(i)
+                if len(pending[key]) >= bk.det_chunk:
+                    flush(key, pending.pop(key))
+            placed = stop
+
+        def probe() -> None:
+            if todo:
+                pages = [srcs[i] for i in todo]
+                with tm.time("gray_probe", sid=sid):
+                    grays = gray_batch_native(pages, _host_threads(len(pages)))
+                    if grays is None:  # no library
+                        grays = [_is_gray(px) for px in pages]
+                for i, gray in zip(todo, grays):
+                    imgs[i].fmt = "gray" if gray else "yuv420"
+                todo.clear()
+            place()
 
         errors: dict[int, RettoError] = {}
         with tm.time("decode", sid=sid):
             for data in inputs:
                 i = len(imgs)
                 try:
-                    im, planes = self._decode_one(data)
+                    im, px = self._geometry(data)
                 except RettoError as e:
                     logger.warning("device_pipeline: image %d failed: %s", i, e)
                     errors[i] = e
                     imgs.append(None)
-                    pixels.append(None)
+                    srcs.append(None)
                     continue
                 imgs.append(im)
-                pixels.append(planes)
-                hp = _bucket_up(im.ah, bk.upload_pad_to, 1 << 30)
-                wp = _bucket_up(im.aw, bk.upload_pad_to, 1 << 30)
-                dh = _bucket_up(im.rh, bk.det_pad_to, bk.det_max_side)
-                dw = _bucket_up(im.rw, bk.det_pad_to, bk.det_max_side)
-                key = (hp, wp, dh, dw, im.fmt)
-                pending.setdefault(key, []).append(i)
-                if len(pending[key]) >= bk.det_chunk:
-                    flush(key, pending.pop(key))
+                srcs.append(px)
+                if self.transfer == "yuv420":
+                    todo.append(i)
+                    if len(todo) >= bk.det_chunk:
+                        probe()
+                else:
+                    place()
+            probe()
             for key, idxs in pending.items():
                 flush(key, idxs)
         stats["chunks"] = len(chunks)
@@ -1033,9 +1134,11 @@ class DevicePipeline:
         sid = state["sid"]
         for ci, ch in enumerate(state["chunks"]):
             with tm.time("upload_wait", sid=sid, chunk=ci):
-                fetch_fut, ch.rgb, ch.valids_src, bytes_up, up_tm = ch.upload_fut.result()
+                (fetch_fut, ch.rgb, ch.valids_src, bytes_up, packed_native,
+                 up_tm) = ch.upload_fut.result()
             tm.merge(up_tm)
             stats["bytes_up"] += bytes_up
+            stats["pages_packed_native"] += packed_native
             with tm.time("mask_fetch", sid=sid, chunk=ci):
                 (packed_np, prob_np), fetch_tm, post_futs = fetch_fut.result()
             tm.merge(fetch_tm)
@@ -1234,6 +1337,7 @@ class DevicePipeline:
         m.images += stats["images"]
         m.crops += stats["crops"]
         m.pad_concats += stats["pad_concats"]
+        m.pages_packed_native += stats["pages_packed_native"]
         m.record_latency(last["t_total"])
         for name, seconds in tm.totals.items():
             m.stage_time[name] += seconds

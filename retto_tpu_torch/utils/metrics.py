@@ -5,9 +5,10 @@ padding-waste fractions — the metrics the reference lacks (it logs only a
 single aggregate avg, retto-cli/src/main.rs:89-93).
 
 Port copy of ``retto_tpu/utils/metrics.py``: ``PipelineMetrics`` as it is,
-but for two additions (latencies kept for the newest ``WINDOW`` calls only,
-so a server's ``/metrics`` does not grow with its uptime, and the count of
-crop-accumulator flushes that padded chunks of mixed shapes), and
+but for three additions (latencies kept for the newest ``WINDOW`` calls
+only, so a server's ``/metrics`` does not grow with its uptime, the count of
+crop-accumulator flushes that padded chunks of mixed shapes, and the count
+of pages whose upload planes one native call a chunk packed), and
 ``profile_trace`` over ``torch.profiler`` in place of ``jax.profiler``.
 """
 
@@ -33,6 +34,7 @@ class PipelineMetrics:
     images: int = 0
     crops: int = 0
     pad_concats: int = 0
+    pages_packed_native: int = 0
     latencies_s: deque = field(default_factory=lambda: deque(maxlen=WINDOW))
     latency_total_s: float = 0.0  # over every call, for images_per_sec
     # bucket name -> [used_slots, padded_slots]
@@ -82,6 +84,7 @@ class PipelineMetrics:
             "images": self.images,
             "crops": self.crops,
             "pad_concats": self.pad_concats,
+            "pages_packed_native": self.pages_packed_native,
             "images_per_sec": round(self.images / total, 3) if total else 0.0,
             "latency_ms": {
                 "p50": round(float(np.percentile(lat, 50)) * 1000, 2),

@@ -124,10 +124,10 @@ def test_run_many_equal_at_widths_1_and_4(tdp, monkeypatch):
 
 def test_pool_width_follows_the_chunk_and_the_cpus(monkeypatch):
     monkeypatch.setattr(device_pipeline.os, "sched_getaffinity", lambda _pid: set(range(8)))
-    assert device_pipeline._post_workers(4) == 4
-    assert device_pipeline._post_workers(8) == 5
+    assert device_pipeline._host_threads(4) == 4
+    assert device_pipeline._host_threads(8) == 5
     monkeypatch.setattr(device_pipeline.os, "sched_getaffinity", lambda _pid: {0, 1})
-    assert device_pipeline._post_workers(4) == 1
+    assert device_pipeline._host_threads(4) == 1
 
 
 def test_postprocess_runs_off_the_calling_thread(tdp, monkeypatch):

@@ -105,7 +105,8 @@ def test_entry_points_refuse_cuda_without_a_card(tiny_weights):
 @pytest.mark.parametrize("disabled", [
     ("det_chunk_native",),
     ("det_chunk_native", "pack_auto_native", "is_gray_native", "pack_gray_native",
-     "pack_yuv420_native", "det_candidates_native", "det_finalize_native"),
+     "pack_yuv420_native", "det_candidates_native", "det_finalize_native",
+     "gray_batch_native", "pack_chunk_native"),
 ], ids=["det_tail", "all_native"])
 def test_fallbacks_without_native_match_jax(pipelines, monkeypatch, disabled):
     """Without the C++ library, the det tail runs on numpy contours and the
@@ -116,7 +117,8 @@ def test_fallbacks_without_native_match_jax(pipelines, monkeypatch, disabled):
     import retto_tpu_torch.native as t_native
 
     for name in disabled:
-        monkeypatch.setattr(j_native, name, lambda *a, **k: None)
+        if hasattr(j_native, name):  # the port's call-wide probe and chunk pack
+            monkeypatch.setattr(j_native, name, lambda *a, **k: None)
         monkeypatch.setattr(t_native, name, lambda *a, **k: None)
     jdp, tdp = pipelines("yuv420")
     jdp.cfg.use_cls = tdp.cfg.use_cls = True

@@ -30,18 +30,32 @@ CALLING = ("decode", "upload_wait", "mask_fetch", "contours_wait", "score", "flu
 # spans of the other threads (the post pool's contours, one an image), merged
 # into the call's
 WORKERS = ("upload", "fetch", "lock_wait", "contours")
+# spans inside others under the yuv420 transfer: the format probe in the
+# calling thread's decode, a chunk's native pack in the upload thread's upload
+NESTED = {"gray_probe": "decode", "pack": "upload"}
 NEW_READERS = ("host.upload_ms_per_page", "host.lock_wait_ms_per_page",
                "host.device_wait_ms_per_page", "host.flush_ms_per_page",
                "host.clsrec_dispatch_ms_per_page", "host.contours_wait_ms_per_page")
 DEVICE_READERS = ("device.det_ms_per_page", "device.clsrec_ms_per_page")
 
 
+def _pipeline(weights, transfer):
+    session = RettoSession(_configs(SessionConfig, BucketConfig, transfer),
+                           charset=CharacterDict(ascii_charset()), weights=weights,
+                           device="cpu")
+    return session, session.device_pipeline()
+
+
 @pytest.fixture(scope="module")
 def tdp(tiny_weights):  # noqa: F811
-    session = RettoSession(_configs(SessionConfig, BucketConfig, "rgb"),
-                           charset=CharacterDict(ascii_charset()), weights=tiny_weights,
-                           device="cpu")
-    dp = session.device_pipeline()
+    session, dp = _pipeline(tiny_weights, "rgb")
+    yield dp
+    session.close()
+
+
+@pytest.fixture(scope="module")
+def ydp(tiny_weights):  # noqa: F811
+    session, dp = _pipeline(tiny_weights, "yuv420")
     yield dp
     session.close()
 
@@ -97,6 +111,39 @@ def test_metrics_stage_time_reads_the_same_totals(tdp):
         assert m.stage_time[name] - before.get(name, 0.0) == pytest.approx(st[f"t_{name}"])
     assert m.stage_time["clsrec_fetch"] - before.get("clsrec_fetch", 0.0) == \
         pytest.approx(st["t_clsrec_fetch"])
+
+
+def test_pack_spans_nest_in_decode_and_upload(ydp, tdp):
+    out, st = _run(ydp, seed=10, sizes=MIXED_SIZES)
+    assert sum(len(r.det_result) for r in out) > 0
+    # one probe a det chunk of pages (4), one pack a chunk, each inside its
+    # thread's span
+    assert st["n_gray_probe"] == 1 and st["n_pack"] == st["chunks"] > 1
+    for name, outer in NESTED.items():
+        assert 0.0 < st[f"t_{name}"] <= st[f"t_{outer}"], name
+    assert st["n_upload"] == 2 * st["chunks"]
+    assert st["pages_packed_native"] == st["images"] == len(MIXED_SIZES)
+    covered = sum(st[f"t_{name}"] for name in CALLING)
+    assert 0.0 < covered <= st["t_total"]
+    # the rgb transfer needs no probe, and its chunks are packed page by
+    # page on the upload thread
+    _, st = _run(tdp, seed=10)
+    assert st["pages_packed_native"] == 0 and "t_gray_probe" not in st
+    assert 0.0 < st["t_pack"] <= st["t_upload"] and st["n_pack"] == st["chunks"]
+
+
+def test_profile_trace_records_the_pack_spans_on_their_threads(ydp, tmp_path):
+    with profile_trace(str(tmp_path)):
+        _run(ydp, seed=11)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    tids: dict[str, set] = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if name.startswith("retto."):
+            tids.setdefault(name.split(" ")[0], set()).add(e["tid"])
+    assert tids["retto.gray_probe"] == tids["retto.decode"]
+    assert tids["retto.pack"] <= tids["retto.upload"]
+    assert tids["retto.pack"].isdisjoint(tids["retto.decode"])
 
 
 def test_pad_concats_count_mixed_shape_flushes(tdp):

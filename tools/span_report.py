@@ -17,7 +17,10 @@ and prints one JSON line:
   microseconds of an idle span and of a timing event's record;
 * ``last_stats_ms_per_call`` and ``last_stats_n_per_call``: the untraced
   passes' ``last_stats`` seconds (``t_*``) and counts (``n_*``), summed and
-  divided by the calls; ``calling_cover`` is the
+  divided by the calls; ``counters_per_call``, the other counters of
+  ``last_stats`` likewise (``images``, ``pages_packed_native``, ...), and
+  ``calls_packed_natively``, the untraced calls whose pages the native
+  chunk pack wrote every one of, against the calls; ``calling_cover`` is the
   calling thread's spans over ``t_total``, without and with ``t_lock_wait``
   (which sums every thread's);
 * from the last traced pass, by thread (calling, upload, fetch, post): each
@@ -200,6 +203,7 @@ def main(argv: list[str] | None = None) -> None:
         cost_us["event_record"] = (time.perf_counter() - t) / n * 1e6
 
     stats: dict = {}
+    packed_calls = [0, 0]
 
     def one_pass(keep: bool) -> float:
         t0 = time.perf_counter()
@@ -208,6 +212,9 @@ def main(argv: list[str] | None = None) -> None:
                 dp.run_many(batch)
             if keep:
                 R._sum_stats(stats, dp.last_stats)
+                packed_calls[0] += (dp.last_stats.get("pages_packed_native")
+                                    == dp.last_stats["images"])
+                packed_calls[1] += 1
         sync()
         return (time.perf_counter() - t0) * 1e3 / len(batches)
 
@@ -222,6 +229,8 @@ def main(argv: list[str] | None = None) -> None:
     calls = len(batches)
     last = {k: v * 1e3 / (2 * calls) for k, v in sorted(stats.items()) if k.startswith("t_")}
     counts = {k: v / (2 * calls) for k, v in sorted(stats.items()) if k.startswith("n_")}
+    counters = {k: v / (2 * calls) for k, v in sorted(stats.items())
+                if not k.startswith(("t_", "n_"))}
     calling = ("decode", "upload_wait", "mask_fetch", "contours_wait", "score", "flush",
                "clsrec_dispatch", "clsrec_wait", "texts", "assemble")
     own = sum(last.get(f"t_{n}", 0.0) for n in calling)
@@ -230,6 +239,7 @@ def main(argv: list[str] | None = None) -> None:
            "calls": calls, "pages_a_call": b, "setup_s": setup, "ms_per_call": ms,
            "always_on_us": cost_us,
            "last_stats_ms_per_call": last, "last_stats_n_per_call": counts,
+           "counters_per_call": counters, "calls_packed_natively": packed_calls,
            "calling_cover": [own / last["t_total"],
                              (own + last.get("t_lock_wait", 0.0)) / last["t_total"]],
            "device": {"det_ms_per_call": last.get("t_det_device"),
